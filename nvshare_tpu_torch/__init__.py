@@ -1,0 +1,26 @@
+"""nvshare_tpu_torch — tpushare on PyTorch and CUDA (NVIDIA Hopper).
+
+The second package of the repository, beside the JAX package
+``nvshare_tpu``, which stays the reference. It speaks the same wire
+protocol to the same ``tpushare-scheduler`` and keeps the same paging
+semantics and telemetry names; its hot ops are CUDA C++ kernels written
+for ``sm_90a`` (``csrc/``), each with a plain PyTorch version beside it.
+
+This package never imports ``jax`` or ``nvshare_tpu``: it keeps its own
+copies of the jax-free modules it needs (protocol, client runtime,
+telemetry registry and event ring, env config, logging).
+
+Public surface:
+  * :mod:`nvshare_tpu_torch.device` — explicit device resolution
+    (``cuda`` unless the caller asks for ``cpu``; never a silent fallback).
+  * :mod:`nvshare_tpu_torch.vmem` — virtual device memory: residency
+    tracking, LRU paging to pinned host shadows, handoff evict/prefetch.
+  * :mod:`nvshare_tpu_torch.interpose` — the device-lock gate.
+  * :mod:`nvshare_tpu_torch.colocate` — in-process multi-tenant harness.
+  * :mod:`nvshare_tpu_torch.models.burner` — the co-location burners.
+  * :mod:`nvshare_tpu_torch.ops` — ``fused_mix`` and ``tiled_matmul``
+    (CUDA kernels on the card, plain PyTorch on the CPU).
+  * :mod:`nvshare_tpu_torch.convert` — adopt numpy state into an arena.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,141 @@
+"""Multi-tenant co-location harness (in-process tenants).
+
+The port of ``nvshare_tpu/colocate.py``: one process owns the card and
+hosts several tenants, each with its *own* :class:`VirtualHBM` arena and
+its own scheduler registration, arbitrated by the real
+``tpushare-scheduler``. Each hand-off swaps the outgoing tenant's working
+set out for the incoming one's. (CUDA also allows process tenants, each
+its own process; gating those is not ported yet.)
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+from nvshare_tpu_torch import interpose, vmem
+from nvshare_tpu_torch.device import DeviceLike
+from nvshare_tpu_torch.pager import client_callbacks
+from nvshare_tpu_torch.runtime.client import PurePythonClient
+from nvshare_tpu_torch.utils import env_bool, get_logger
+
+log = get_logger("colocate")
+
+
+class Tenant:
+    """One tenant: an arena (its virtual device memory) + a scheduler
+    registration.
+
+    ``budget_bytes`` is this tenant's view of capacity; with N tenants
+    oversubscribing, each still sees the whole budget. ``pool`` models the
+    one card's physical memory shared by every co-located tenant. ``name``
+    doubles as the telemetry label. The proactive pager (``use_pager``,
+    ``$TPUSHARE_PAGER``) and QoS declarations (``qos``) are not ported:
+    asking for either raises.
+    """
+
+    def __init__(self, name: str, budget_bytes: Optional[int] = None,
+                 device: DeviceLike = None,
+                 pool: Optional[vmem.PhysicalPool] = None,
+                 use_pager: Optional[bool] = None, qos=None):
+        if use_pager if use_pager is not None else env_bool("TPUSHARE_PAGER"):
+            raise NotImplementedError(
+                "the proactive pager is not implemented in "
+                "nvshare_tpu_torch yet; unset TPUSHARE_PAGER")
+        self.arena = vmem.VirtualHBM(device=device,
+                                     budget_bytes=budget_bytes,
+                                     pool=pool, name=name)
+        # The arena may have deduped a reused name (job -> job-2); the
+        # tenant AND its client carry the arena's final label.
+        self.name = self.arena.name
+        self.client = PurePythonClient(job_name=self.arena.name, qos=qos,
+                                       **client_callbacks(self.arena))
+
+    def run(self, workload: Callable[["Tenant"], object]):
+        """Run ``workload(self)``; every managed op inside gates through
+        THIS tenant's client (thread-local override)."""
+        try:
+            with interpose.tenant_context(self.client, self.arena):
+                return workload(self)
+        finally:
+            self.client.release_now()
+
+    def telemetry_snapshot(self) -> dict:
+        """This tenant's paging counters (legacy stats keys)."""
+        return self.arena.telemetry_snapshot()
+
+    def close(self) -> None:
+        self.client.shutdown()
+        # Retire the arena too, so the shared pool does not leak capacity.
+        self.arena.close()
+
+
+@dataclass
+class ColocationReport:
+    names: list
+    walls: dict = field(default_factory=dict)
+    makespan_s: float = 0.0
+    results: dict = field(default_factory=dict)
+    errors: dict = field(default_factory=dict)
+
+    @property
+    def ok(self) -> bool:
+        return not self.errors
+
+
+def run_colocated(tenants_workloads: dict, timeout_s: float = 3600
+                  ) -> ColocationReport:
+    """Run ``{tenant: workload}`` concurrently (one thread per tenant) and
+    report per-tenant walls + total makespan."""
+    report = ColocationReport(names=[t.name for t in tenants_workloads])
+
+    def runner(tenant: Tenant, workload):
+        t0 = time.time()
+        try:
+            report.results[tenant.name] = tenant.run(workload)
+        except Exception as e:  # report, don't kill the harness
+            log.error("tenant %s failed: %s", tenant.name, e)
+            report.errors[tenant.name] = e
+        finally:
+            report.walls[tenant.name] = time.time() - t0
+
+    threads = [
+        threading.Thread(target=runner, args=(t, w), name=f"tenant-{t.name}")
+        for t, w in tenants_workloads.items()
+    ]
+    t0 = time.time()
+    for th in threads:
+        th.start()
+    deadline = t0 + timeout_s
+    for th in threads:
+        th.join(timeout=max(0.0, deadline - time.time()))
+        if th.is_alive():
+            # A hung tenant is a failure, not a silently-missing result.
+            name = th.name.removeprefix("tenant-")
+            report.errors[name] = TimeoutError(
+                f"tenant {name} still running after {timeout_s:.0f}s")
+    report.makespan_s = time.time() - t0
+    return report
+
+
+def burner_workload(kind: str, wss_bytes: int, steps: int,
+                    chunks: int = 8, device_ratio: float = 0.9
+                    ) -> Callable[[Tenant], object]:
+    """A gated burner workload for :func:`run_colocated`."""
+    from nvshare_tpu_torch.models.burner import (
+        AddBurner,
+        MatmulBurner,
+        MixBurner,
+    )
+
+    cls = {"matmul": MatmulBurner, "add": AddBurner, "mix": MixBurner}[kind]
+
+    def work(tenant: Tenant):
+        burner = cls(wss_bytes, chunks=chunks, arena=tenant.arena,
+                     device_ratio=device_ratio)
+        return burner.run(
+            steps, step_hook=lambda _s: tenant.client.mark_activity())
+
+    return work
