@@ -14,13 +14,20 @@ Public surface:
   * :mod:`nvshare_tpu_torch.device` — explicit device resolution
     (``cuda`` unless the caller asks for ``cpu``; never a silent fallback).
   * :mod:`nvshare_tpu_torch.vmem` — virtual device memory: residency
-    tracking, LRU paging to pinned host shadows, handoff evict/prefetch.
+    tracking, LRU paging to pinned host shadows, handoff evict/prefetch;
+    ``vop`` over nested dicts, lists and tuples of managed arrays.
   * :mod:`nvshare_tpu_torch.interpose` — the device-lock gate.
-  * :mod:`nvshare_tpu_torch.colocate` — in-process multi-tenant harness.
+  * :mod:`nvshare_tpu_torch.colocate` — in-process multi-tenant harness
+    (burner and LM serving workloads).
   * :mod:`nvshare_tpu_torch.models.burner` — the co-location burners.
-  * :mod:`nvshare_tpu_torch.ops` — ``fused_mix`` and ``tiled_matmul``
-    (CUDA kernels on the card, plain PyTorch on the CPU).
-  * :mod:`nvshare_tpu_torch.convert` — adopt numpy state into an arena.
+  * :mod:`nvshare_tpu_torch.models.transformer` and
+    :mod:`nvshare_tpu_torch.models.decode` — the transformer LM's scoring
+    forward and KV-cache decoding.
+  * :mod:`nvshare_tpu_torch.ops` — ``fused_mix``, ``tiled_matmul`` and
+    the flash-attention forward (CUDA kernels on the card, plain PyTorch
+    on the CPU), and ``rope_rotate``.
+  * :mod:`nvshare_tpu_torch.convert` — carry numpy state (arrays, LM
+    parameters, KV caches) across.
 """
 
 __version__ = "0.1.0"

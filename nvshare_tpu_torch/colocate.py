@@ -15,6 +15,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import numpy as np
+import torch
+
 from nvshare_tpu_torch import interpose, vmem
 from nvshare_tpu_torch.device import DeviceLike
 from nvshare_tpu_torch.pager import client_callbacks
@@ -137,5 +140,93 @@ def burner_workload(kind: str, wss_bytes: int, steps: int,
                      device_ratio=device_ratio)
         return burner.run(
             steps, step_hook=lambda _s: tenant.client.mark_activity())
+
+    return work
+
+
+@dataclass
+class LMResult:
+    """What an LM serving tenant answered: per request, the f64 sum of the
+    scoring logits and the greedily decoded tokens; host-clock seconds of
+    each part (each request ends in a readback, so they include the
+    device's work)."""
+
+    checksums: list
+    tokens: np.ndarray          # [requests, decode_batch, decode_tokens]
+    score_s: list
+    decode_s: list
+    wall_s: float
+
+    @property
+    def passed(self) -> bool:
+        return bool(np.isfinite(self.checksums).all())
+
+
+def _score_sum(params: dict, model, tokens: torch.Tensor) -> torch.Tensor:
+    """One scoring forward, reduced on the device to the f64 sum of its
+    logits (the logits themselves are never adopted by the arena)."""
+    from nvshare_tpu_torch.models.transformer import transformer_forward
+
+    return transformer_forward(params, model, tokens).sum(
+        dtype=torch.float64)
+
+
+def lm_workload(model, *, requests: int, score_batch: int,
+                decode_batch: int, decode_tokens: int,
+                max_len: Optional[int] = None, seed: int = 0
+                ) -> Callable[[Tenant], LMResult]:
+    """A gated LM serving workload for :func:`run_colocated`.
+
+    The tenant creates its parameters and a KV cache of ``decode_batch`` x
+    ``max_len`` (default ``model.seq``) on its device, through ``vop``s
+    whose dict outputs its arena adopts. Each request then scores
+    ``score_batch`` sequences of ``model.seq`` tokens with
+    :func:`transformer_forward` (the flash kernel once per layer) and
+    decodes ``decode_tokens`` greedy tokens for ``decode_batch`` streams
+    against the donated cache, continuing one session from request to
+    request. Every value is a function of ``seed``, so a co-located run
+    must reproduce a solo run bit for bit.
+    """
+    from nvshare_tpu_torch.models.decode import greedy_step, init_kv_cache
+    from nvshare_tpu_torch.models.transformer import synthetic_tokens
+
+    max_len = model.seq if max_len is None else max_len
+    if requests * decode_tokens > max_len:
+        raise ValueError(f"{requests} requests of {decode_tokens} tokens "
+                         f"overrun a cache of {max_len} positions")
+
+    def work(tenant: Tenant) -> LMResult:
+        a = tenant.arena
+        t_start = time.perf_counter()
+        params = vmem.vop(lambda dev: model.init(seed, device=dev))(a.device)
+        cache = vmem.vop(lambda dev: init_kv_cache(
+            model, decode_batch, max_len, device=dev))(a.device)
+        score = vmem.vop(_score_sum, static_argnums=(1,))
+        step = vmem.vop(greedy_step, static_argnums=(1,),
+                        donate_argnums=(2,))
+        first = synthetic_tokens(model, decode_batch, seed)[:, 0]
+        token = a.array(first.astype(np.int64))
+        checksums, tokens, score_s, decode_s = [], [], [], []
+        for r in range(requests):
+            batch = a.array(synthetic_tokens(
+                model, score_batch, seed + 1 + r)[:, :model.seq])
+            t0 = time.perf_counter()
+            checksums.append(float(score(params, model, batch).numpy()))
+            t1 = time.perf_counter()
+            out = []
+            for t in range(decode_tokens):
+                token, cache = step(params, model, cache,
+                                    r * decode_tokens + t, token)
+                out.append(token)
+            tokens.append(np.stack(vmem.tree_numpy(out), axis=1))
+            decode_s.append(time.perf_counter() - t1)
+            score_s.append(t1 - t0)
+            batch.delete()
+            tenant.client.mark_activity()
+        # The server shuts down: its state goes, and is not paged out.
+        for va in [*params.values(), *cache.values(), token]:
+            va.delete()
+        return LMResult(checksums, np.stack(tokens), score_s, decode_s,
+                        time.perf_counter() - t_start)
 
     return work

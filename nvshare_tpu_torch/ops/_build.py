@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = {"mix": "mix.cu", "matmul": "matmul.cu"}
+SOURCES = {"mix": "mix.cu", "matmul": "matmul.cu",
+           "attention": "attention.cu"}
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -139,6 +140,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "matmul":
         fn = lib.tpushare_tiled_matmul
         fn.argtypes = [p, p, p, i, i, i, i, i, p]
+    elif name == "attention":
+        fn = lib.tpushare_flash_forward
+        ll = ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, *([ll] * 9), i, i, f, p]
     else:
         raise KeyError(name)
     fn.restype = ctypes.c_int

@@ -11,7 +11,8 @@ The port of ``nvshare_tpu/vmem.py`` on its synchronous, whole-array paths:
     ``$TPUSHARE_HBM_BYTES`` on a CPU arena;
   * computations run through :func:`vop`, which pages operands in
     (evicting least-recently-used arrays as needed), runs the function
-    under the device lock, and tracks its outputs;
+    under the device lock, and tracks its outputs; operands and outputs
+    may be nested dicts, lists and tuples (a parameter tree, a KV cache);
   * on lock hand-off the whole resident set is fenced and evicted
     (DROP_LOCK) and bulk-prefetched back on LOCK_OK;
   * :func:`mem_info` reports the virtual capacity, not the physical one.
@@ -727,49 +728,144 @@ def array(value, dtype=None) -> VArray:
     return arena().array(value, dtype=dtype)
 
 
+def _tree_map(fn: Callable, tree):
+    """``fn`` over the leaves of nested dicts, lists and tuples (the
+    containers a parameter tree, a KV cache or a step's result is made
+    of); the structure is rebuilt around the results."""
+    if type(tree) is dict:
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> list:
+    leaves: list = []
+    _tree_map(leaves.append, tree)
+    return leaves
+
+
+def tree_array(tree, arena: Optional[VirtualHBM] = None):
+    """Adopt every leaf of a tree (nested dicts, lists, tuples) as a
+    managed VArray of ``arena`` (default: the process arena); VArray
+    leaves stay as they are."""
+    a = arena if arena is not None else _process_arena()
+    return _tree_map(
+        lambda leaf: leaf if isinstance(leaf, VArray) else a.array(leaf),
+        tree)
+
+
+def tree_numpy(tree):
+    """Read every VArray leaf of a tree back to numpy (fenced)."""
+    return _tree_map(
+        lambda leaf: leaf.numpy() if isinstance(leaf, VArray) else leaf,
+        tree)
+
+
+_process_arena = arena
+
+
 def mem_info() -> tuple[int, int]:
     return arena().mem_info()
 
 
 def _as_meta(x):
+    """A dynamic argument as the meta pass sees it: arrays become meta
+    tensors of their shape, and a device names the meta device, so a
+    function that creates its outputs on a device it is given (a model's
+    parameters, a cache) allocates nothing in the meta pass."""
     if isinstance(x, (VArray, torch.Tensor)):
         return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    if isinstance(x, torch.device):
+        return torch.device("meta")
     return x
 
 
-def _flat_outputs(out) -> tuple[list, bool]:
-    """(tensors, is_sequence) of a function's result."""
-    if isinstance(out, torch.Tensor):
-        return [out], False
-    if isinstance(out, (tuple, list)) and all(
-            isinstance(o, torch.Tensor) for o in out):
-        return list(out), True
-    raise TypeError("a vop function returns a tensor or a tuple/list of "
-                    f"tensors, not {type(out).__name__}")
+def _signature(tree):
+    """What the output sizes of a vop function may depend on, for its
+    dynamic arguments: the containers, each array's shape and dtype, and
+    the type of any other leaf. As under ``jax.jit``, which traces such
+    arguments, a Python scalar in a dynamic position must not set the
+    shape of an output; pass it in ``static_argnums`` if it does."""
+    if type(tree) is dict:
+        return ("dict", tuple((k, _signature(v)) for k, v in tree.items()))
+    if type(tree) in (list, tuple):
+        return (type(tree).__name__, tuple(_signature(v) for v in tree))
+    if isinstance(tree, (VArray, torch.Tensor)):
+        return (tuple(tree.shape), tree.dtype)
+    return type(tree)
 
 
-def vop(fn: Callable, *, donate_argnums=()) -> Callable:
+def _output_leaves(out) -> list:
+    leaves = _tree_leaves(out)
+    bad = [type(o).__name__ for o in leaves
+           if not isinstance(o, torch.Tensor)]
+    if bad:
+        raise TypeError("a vop function returns a tensor or nested dicts, "
+                        f"lists or tuples of tensors, not {bad[0]}")
+    return leaves
+
+
+def vop(fn: Callable, *, static_argnums=(), donate_argnums=()) -> Callable:
     """Wrap ``fn`` so it computes over :class:`VArray` operands with paging
     and device-lock gating.
 
-    The returned callable takes VArrays and plain values (tensors, Python
-    scalars) as positional arguments; VArrays are paged in (evicting LRU
-    arrays when over budget), ``fn`` runs on their device tensors under the
-    device lock, and the tensors it returns come back as device-resident
-    VArrays (one, or a tuple for a tuple/list result).
+    The returned callable takes positional arguments that are VArrays,
+    plain values (tensors, Python scalars, a device) or nested dicts,
+    lists and tuples of them (a parameter tree, a KV cache). Every VArray
+    leaf is paged in (evicting LRU arrays when over budget), ``fn`` runs on
+    the device tensors under the device lock, and its result, a tensor or
+    nested dicts, lists and tuples of tensors, comes back with the same
+    structure of device-resident VArrays.
 
-    ``donate_argnums``: those operands are CONSUMED — ``fn`` may update
-    them in place (and return them as outputs), and they are discarded
-    from the arena, so callers rebind the name: ``x = step(x)``. ``fn``
-    must not update an operand it does not donate.
+    ``static_argnums``: those arguments (a model config, a Python
+    option) reach ``fn`` as they are, in the meta pass that sizes the
+    outputs as in the real call. The meta pass runs once per signature
+    (the static values, and the shapes and dtypes of the dynamic arrays;
+    see :func:`_signature`), as ``jax.jit`` traces once: PyTorch runs meta
+    tensors through Python reference implementations, slower than the
+    real call.
+
+    ``donate_argnums``: every VArray leaf under those positions is
+    CONSUMED — ``fn`` may update it in place (and return it as an output),
+    and it is discarded from the arena, so callers rebind the name:
+    ``cache = step(cache)``. ``fn`` must not update an operand it does not
+    donate.
     """
+    static = ((static_argnums,) if isinstance(static_argnums, int)
+              else tuple(static_argnums))
     donate = ((donate_argnums,) if isinstance(donate_argnums, int)
               else tuple(donate_argnums))
+
+    sized: dict = {}  # signature -> output bytes
+
+    def out_size(args, sset) -> int:
+        try:
+            key = tuple(args[i] if i in sset else _signature(args[i])
+                        for i in range(len(args)))
+            hash(key)
+        except TypeError:  # an unhashable static argument: size each call
+            key = None
+        if key is None or key not in sized:
+            meta_out = _output_leaves(fn(*[
+                x if i in sset else _tree_map(_as_meta, x)
+                for i, x in enumerate(args)]))
+            nbytes = sum(o.numel() * o.element_size() for o in meta_out)
+            if key is None:
+                return nbytes
+            if len(sized) >= 256:
+                sized.clear()
+            sized[key] = nbytes
+        return sized[key]
 
     def run(*args):
         from nvshare_tpu_torch import interpose  # late: avoids import cycle
 
-        vas = [x for x in args if isinstance(x, VArray)]
+        n = len(args)
+        sset = {i % n for i in static} if n else set()
+        dset = {i % n for i in donate} if n else set()
+        dynamic = [args[i] for i in range(n) if i not in sset]
+        vas = [x for x in _tree_leaves(dynamic) if isinstance(x, VArray)]
         # Operate in the operands' arena; mixing arenas in one op would
         # corrupt both sides' residency accounting — refuse loudly.
         if vas:
@@ -780,10 +876,10 @@ def vop(fn: Callable, *, donate_argnums=()) -> Callable:
                     "each tenant's arrays in its own arena")
         else:
             a = interpose.current_arena()
-        # Output-size reservation from shapes: one run on meta tensors.
-        meta_out, _ = _flat_outputs(fn(*[_as_meta(x) for x in args]))
-        out_bytes = sum(o.numel() * o.element_size() for o in meta_out)
-        donated = [args[i] for i in donate if isinstance(args[i], VArray)]
+        # Output-size reservation from shapes: a run on meta tensors.
+        out_bytes = out_size(args, sset)
+        donated = [x for i in sorted(dset - sset)
+                   for x in _tree_leaves(args[i]) if isinstance(x, VArray)]
         out_bytes = max(0, out_bytes - sum(d.nbytes for d in donated))
 
         interpose.gate()
@@ -797,12 +893,15 @@ def vop(fn: Callable, *, donate_argnums=()) -> Callable:
             # arena lock would deadlock the eviction callback.
             with a._lock, interpose.critical_section():
                 a.ensure(vas, extra_bytes=out_bytes)
-                dev_args = [x._dev if isinstance(x, VArray) else x
-                            for x in args]
-                kept = {x._dev.untyped_storage().data_ptr()
-                        for i, x in enumerate(args)
-                        if isinstance(x, VArray) and i not in donate}
-                outs, seq = _flat_outputs(fn(*dev_args))
+                dev_args = [
+                    x if i in sset else _tree_map(
+                        lambda v: v._dev if isinstance(v, VArray) else v, x)
+                    for i, x in enumerate(args)]
+                donated_ids = {id(d) for d in donated}
+                kept = {v._dev.untyped_storage().data_ptr() for v in vas
+                        if id(v) not in donated_ids}
+                out_tree = fn(*dev_args)
+                outs = _output_leaves(out_tree)
                 del dev_args
                 a._record_pending()
                 # Retire donated operands FIRST: their storage may now back
@@ -819,9 +918,11 @@ def vop(fn: Callable, *, donate_argnums=()) -> Callable:
                 # share (and double-count) one buffer.
                 outs = [o.clone() if o.untyped_storage().data_ptr() in kept
                         else o for o in outs]
-                wrapped = a.note_outputs(outs)
+                wrapped = iter(a.note_outputs(outs))
+                result = _tree_map(lambda _o: next(wrapped), out_tree)
+                del out_tree, outs
             a.after_submit()
-            return tuple(wrapped) if seq else wrapped[0]
+            return result
         finally:
             with a._lock:
                 a._busy_depth -= 1

@@ -11,6 +11,7 @@
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -98,14 +99,40 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
         device.resolve_device("mps")
 
 
+def test_model_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from nvshare_tpu_torch.convert import transformer_params_from_numpy
+    from nvshare_tpu_torch.models import Transformer, init_kv_cache
+
+    model = Transformer(vocab=16, dim=32, heads=2, depth=1, seq=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_kv_cache(model, batch=1, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer_params_from_numpy({"ln_f": np.ones(32, np.float32)})
+    assert model.init(device="cpu")["embed"].device.type == "cpu"
+    assert init_kv_cache(model, 1, 8, device="cpu")["k0"].device.type \
+        == "cpu"
+
+
 def test_wrappers_on_cpu_tensors_never_touch_the_kernels(no_cuda):
-    from nvshare_tpu_torch.ops import fused_mix, tiled_matmul
+    from nvshare_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_lse,
+        fused_mix,
+        tiled_matmul,
+    )
 
     a = torch.rand(256, 256)
-    before = (fused_mix.launches.value, tiled_matmul.launches.value)
+    q = torch.rand(1, 256, 2, 64)
+    counts = (fused_mix.launches, tiled_matmul.launches,
+              flash_attention.launches)
+    before = [c.value for c in counts]
     fused_mix(a, a)
     tiled_matmul(a, a)
-    assert (fused_mix.launches.value, tiled_matmul.launches.value) == before
+    flash_attention(q, q, q, causal=True)
+    flash_attention_lse(q, q, q)
+    assert [c.value for c in counts] == before
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

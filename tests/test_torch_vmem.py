@@ -10,6 +10,7 @@ results.
 
 import numpy as np
 import pytest
+import torch
 
 import nvshare_tpu.vmem as jvmem
 import nvshare_tpu_torch.vmem as tvmem
@@ -215,15 +216,15 @@ def test_strict_single_oversub_refuses_in_both(monkeypatch):
 
 
 def test_vop_passes_plain_arguments_through():
-    """The JAX vop needs static_argnums for a Python argument; PyTorch
-    runs eagerly, so the port passes it through as it is."""
+    """A Python argument that sets an output's shape is static in both
+    packages; it reaches the function as it is."""
     ja = singleton(jvmem)
     x = np.arange(16.0, dtype=np.float32)
     want = jvmem.vop(lambda v, n: v.reshape(n, -1).sum(axis=1),
                      static_argnums=(1,))(ja.array(x), 4).numpy()
     ta = singleton(tvmem)
-    got = tvmem.vop(lambda v, n: v.reshape(n, -1).sum(dim=1))(
-        ta.array(x), 4).numpy()
+    got = tvmem.vop(lambda v, n: v.reshape(n, -1).sum(dim=1),
+                    static_argnums=(1,))(ta.array(x), 4).numpy()
     np.testing.assert_allclose(got, want)
 
 
@@ -259,3 +260,188 @@ def test_first_touch_is_refused(monkeypatch):
     monkeypatch.setenv("TPUSHARE_PAGER_FIRST_TOUCH", "1")
     with pytest.raises(NotImplementedError):
         tvmem.VirtualHBM(device="cpu")
+
+
+# -- pytrees through vop ----------------------------------------------------
+
+
+def _tree(seed):
+    rng = np.random.RandomState(seed)
+    return {"w": rng.rand(64, 64).astype(np.float32),
+            "layers": [rng.rand(32).astype(np.float32) for _ in range(2)],
+            "pair": (rng.rand(8).astype(np.float32),
+                     np.arange(4, dtype=np.int32))}
+
+
+def test_tree_array_and_tree_numpy_round_trip():
+    a = singleton(tvmem)
+    tree = _tree(0)
+    vt = tvmem.tree_array(tree, arena=a)
+    assert isinstance(vt["layers"], list) and isinstance(vt["pair"], tuple)
+    assert all(isinstance(x, tvmem.VArray)
+               for x in (vt["w"], *vt["layers"], *vt["pair"]))
+    assert a.tracked_bytes == sum(
+        x.nbytes for x in (tree["w"], *tree["layers"], *tree["pair"]))
+    assert tvmem.tree_array(vt, arena=a)["w"] is vt["w"]
+    back = tvmem.tree_numpy(vt)
+    np.testing.assert_array_equal(back["w"], tree["w"])
+    np.testing.assert_array_equal(back["pair"][1], tree["pair"][1])
+    assert tvmem.tree_numpy({"n": 3})["n"] == 3
+
+
+def _scaled(params, scale, x):
+    """dict in, dict out; ``scale`` is a Python float (static)."""
+    return {"y": params["w"] @ x * scale,
+            "parts": [layer + scale for layer in params["layers"]]}
+
+
+def test_pytree_vop_with_static_args_matches_reference():
+    tree = _tree(1)
+    x = np.random.RandomState(2).rand(64).astype(np.float32)
+    ja, ta = singleton(jvmem), singleton(tvmem)
+    want = jvmem.tree_numpy(jvmem.vop(_scaled, static_argnums=(1,))(
+        jvmem.tree_array(tree, ja), 0.5, ja.array(x)))
+    out = tvmem.vop(_scaled, static_argnums=(1,))(
+        tvmem.tree_array(tree, arena=ta), 0.5, ta.array(x))
+    assert isinstance(out["parts"], list) and len(out["parts"]) == 2
+    assert all(isinstance(v, tvmem.VArray) and v.resident
+               for v in (out["y"], *out["parts"]))
+    got = tvmem.tree_numpy(out)
+    np.testing.assert_allclose(got["y"], want["y"], rtol=1e-5)
+    for g, w in zip(got["parts"], want["parts"]):
+        np.testing.assert_array_equal(g, w)
+    assert dict(ta.stats) == dict(ja.stats)
+
+
+def test_static_args_reach_the_meta_pass_as_they_are():
+    seen = []
+
+    def fn(x, cfg):
+        seen.append((x.device.type, cfg))
+        return x[: cfg["n"]] * 2.0
+
+    a = singleton(tvmem)
+    out = tvmem.vop(fn, static_argnums=1)(a.array(big(3, n=8)), {"n": 3})
+    assert seen == [("meta", {"n": 3}), ("cpu", {"n": 3})]
+    assert out.shape == (3, 8)
+
+
+def test_pytree_donation_updates_dict_leaves_in_place():
+    a = singleton(tvmem)
+    cache = tvmem.tree_array({"k": np.zeros((4, 8), np.float32),
+                              "v": np.zeros((4, 8), np.float32)}, arena=a)
+    keep = a.array(np.ones(8, np.float32))
+    tracked = a.tracked_bytes
+
+    def write(cache, row, val):
+        cache["k"][row] = val
+        cache["v"][row] = val * 2.0
+        return val.sum(), cache
+
+    step = tvmem.vop(write, static_argnums=(1,), donate_argnums=(0,))
+    ptrs = {}
+    for row in range(3):
+        total, cache = step(cache, row, keep)
+        ptrs.setdefault("k", cache["k"]._dev.data_ptr())
+        # In place: the donated buffers back the outputs, no copies.
+        assert cache["k"]._dev.data_ptr() == ptrs["k"]
+        assert a.tracked_bytes == tracked + total.nbytes  # one live total
+    assert keep in a._live and keep.resident
+    got = tvmem.tree_numpy(cache)
+    np.testing.assert_array_equal(got["k"][:3], np.ones((3, 8)))
+    np.testing.assert_array_equal(got["v"][:3], 2 * np.ones((3, 8)))
+    np.testing.assert_array_equal(got["k"][3], np.zeros(8))
+
+
+def test_vop_creates_outputs_from_a_device_argument_without_inputs():
+    a = singleton(tvmem)
+
+    def make(dev):
+        return {"a": torch.ones(16, 16, device=dev),
+                "b": [torch.zeros(4, device=dev)]}
+
+    out = tvmem.vop(make)(torch.device("cpu"))
+    assert a.tracked_bytes == 16 * 16 * 4 + 4 * 4
+    assert out["a"].resident and out["a"].numpy().sum() == 256
+    with pytest.raises(TypeError, match="tensor"):
+        tvmem.vop(lambda x: {"n": 3})(a.array(big(4, n=4)))
+
+
+# -- an LM pair under the real scheduler ---------------------------------
+
+
+@pytest.fixture
+def sched_env(tmp_path, native_build, monkeypatch):
+    from tests.conftest import SchedulerProc
+
+    monkeypatch.setenv("TPUSHARE_SOCK_DIR", str(tmp_path))
+    monkeypatch.setenv("TPUSHARE_REQUIRE_SCHEDULER", "1")
+    s = SchedulerProc(tmp_path, tq_sec=1)
+    try:
+        yield s
+    finally:
+        s.stop()
+
+
+def _lm_run(names, budget):
+    from nvshare_tpu_torch.colocate import Tenant, lm_workload, run_colocated
+    from nvshare_tpu_torch.models.transformer import Transformer
+
+    # A few seconds of gated work a tenant: several 1 s quanta.
+    model = Transformer(vocab=64, dim=128, heads=4, depth=2, seq=512,
+                        rope=True)
+    pool = tvmem.PhysicalPool(budget)
+    tenants = [Tenant(n, budget_bytes=budget, device="cpu", pool=pool)
+               for n in names]
+    try:
+        report = run_colocated(
+            {t: lm_workload(model, requests=64, score_batch=2,
+                            decode_batch=4, decode_tokens=8)
+             for t in tenants}, timeout_s=120)
+        snaps = {t.name: t.telemetry_snapshot() for t in tenants}
+    finally:
+        for t in tenants:
+            t.close()
+    assert report.ok, report.errors
+    return report, snaps
+
+
+def test_lm_pair_under_the_scheduler_equals_solo(sched_env):
+    solo, _ = _lm_run(["lm-solo"], 16 * MB)
+    pair, snaps = _lm_run(["lm-t1", "lm-t2"], 16 * MB)
+    err = sched_env.stop()
+    assert "DROP_LOCK" in err, f"TQ never expired: {err}"
+    want = solo.results["lm-solo"]
+    assert want.passed and want.tokens.shape == (64, 4, 8)
+    for name in ("lm-t1", "lm-t2"):
+        assert f"LOCK_OK -> {name} " in err, err
+        got = pair.results[name]
+        assert got.checksums == want.checksums, name
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        assert snaps[name]["handoff_evicts"] > 0, snaps
+        assert snaps[name]["prefetches"] > 0, snaps
+
+
+def test_meta_pass_runs_once_per_signature():
+    a = singleton(tvmem)
+    metas = []
+
+    def fn(x, pos, cfg):
+        if x.device.type == "meta":
+            metas.append(pos)
+        return x[:2] * pos
+
+    op = tvmem.vop(fn, static_argnums=(2,))
+    x, y = a.array(big(5, n=8)), a.array(big(6, n=16))
+    for pos in range(3):  # a dynamic scalar is keyed by its type
+        op(x, pos, "cfg")
+    assert metas == [0]
+    op(y, 0, "cfg")      # another shape
+    op(x, 0, "other")    # another static value
+    assert metas == [0, 0, 0]
+    out = op(x, 2.5, "cfg")  # another scalar type
+    assert metas == [0, 0, 0, 2.5]
+    np.testing.assert_allclose(out.numpy(), big(5, n=8)[:2] * 2.5)
+    tvmem.vop(fn, static_argnums=(2,))(x, 1, {"unhashable": 1})
+    tvmem.vop(fn, static_argnums=(2,))(x, 1, {"unhashable": 1})
+    assert len(metas) == 6
