@@ -10,7 +10,7 @@ Phases (each one's seconds are printed; any failure exits non-zero):
 
 1. Environment: PyTorch and CUDA versions, the card's name and power
    limit, host ``MemAvailable``.
-2. Build, all at once: the three CUDA kernels (one ``nvcc`` per source in
+2. Build, all at once: the CUDA kernels (one ``nvcc`` per source in
    ``nvshare_tpu_torch/csrc/``) and ``tpushare-scheduler``/``tpusharectl``
    from ``src/`` into ``build/sched/``.
 3. Kernel checks on the card against the plain PyTorch versions:
@@ -21,8 +21,14 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    the LM's scoring shape [4, 2048, 32, 128] in bf16 and f32, causal and
    full, at [2, 256, 2, 64] and cross-length 128 x 256 (out within the
    dtype's tolerance, 2e-5 in f32 and 2e-2 in bf16; lse within 2e-5).
-   Times from CUDA events; ``torch.matmul`` in bf16 and
-   ``scaled_dot_product_attention`` are timed as the library yardsticks.
+   The flash-attention backward kernels, K4 (dQ) and K5 (dK/dV), against
+   their plain versions at the training shape in bf16 and f32, causal
+   and full, at [2, 256, 2, 64], cross-length 128 x 256 both ways, and
+   with a nonzero LSE cotangent (entry by entry 2e-4 in f32 and 5e-2 in
+   bf16, and each 64-row tile's norm-wise relative error within 1e-5 in
+   f32 and 1e-2 in bf16: ``BWD_TILE_REL``). Times from
+   CUDA events; ``torch.matmul`` in bf16, ``scaled_dot_product_attention``
+   and its backward are timed as the library yardsticks.
 4. The main path, once per burner kind (matmul through the tile kernel
    with ``TPUSHARE_PALLAS_MATMUL=1``, then add through the mix kernel):
    a private scheduler, one ``PhysicalPool`` of the arena budget, a short
@@ -45,6 +51,20 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    scoring checksum and decoded token must equal the solo run's, both
    tenants must be dropped at least twice and evict and prefetch, and K3
    must have launched 32 times a request.
+6. LM training at the same widths, 24 of 32 layers, every block
+   recomputed in the backward (``TRAIN`` below): a full-width check of
+   one step (K4 and K5 against the plain backward on every layer's own
+   q, k, v and dO, tile by tile within 1e-2; the
+   loss and every gradient against the step through the plain
+   attention; the launches; the step's peak device memory, which sets
+   the pair's budget; ``_matmul_f32``'s backward against exact f32
+   products), the pair's sizing, one tenant's step time and handoff
+   cycle (which set the quantum and the number of steps), then a solo
+   tenant and two co-located tenants training from the same seed. Every
+   co-located loss and the final checksum of parameters and momentum
+   must equal the solo run's, both tenants must be dropped at least
+   twice, and K3, K4 and K5 must have launched 2 x 24, 24 and 24 times a
+   step.
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and ``{"ok": true, "device": {...}}``.
 """
@@ -72,6 +92,7 @@ from nvshare_tpu_torch import vmem  # noqa: E402
 from nvshare_tpu_torch.colocate import (  # noqa: E402
     Tenant,
     burner_workload,
+    lm_train_workload,
     lm_workload,
     run_colocated,
 )
@@ -82,15 +103,24 @@ from nvshare_tpu_torch.models.decode import (  # noqa: E402
 )
 from nvshare_tpu_torch.models.transformer import (  # noqa: E402
     Transformer,
+    _matmul_f32,
+    init_lm_state,
+    lm_loss_and_grads,
     local_attn,
     synthetic_tokens,
     transformer_forward,
 )
 from nvshare_tpu_torch.ops import _build  # noqa: E402
 from nvshare_tpu_torch.ops import (  # noqa: E402
+    attention_delta,
     flash_attention,
     flash_attention_lse,
     flash_attention_reference,
+    flash_backward_dkv,
+    flash_backward_dkv_reference,
+    flash_backward_dq,
+    flash_backward_dq_reference,
+    flash_backward_reference,
     fused_mix,
     fused_mix_reference,
     tiled_matmul,
@@ -126,6 +156,15 @@ SCORE_BATCH = 4          # sequences of LM.seq tokens scored per request
 DECODE_BATCH = 16        # streams decoded against the KV cache
 DECODE_TOKENS = 32       # greedy tokens per request
 CHECK_DECODE = 64        # teacher-forced positions in the inference check
+
+# The training pair: the same widths with every block recomputed in the
+# backward, cut to 24 of 32 layers because host memory must hold both
+# tenants' pinned shadows of f32 parameters and momentum (PERF.md).
+TRAIN = Transformer(vocab=50257, dim=4096, heads=32, depth=24, seq=2048,
+                    rope=True, remat=True)
+TRAIN_BATCH = 4          # sequences of TRAIN.seq tokens a step
+TRAIN_LR = 1e-2          # lm_train_step's default
+TRAIN_SEED = 0
 
 
 def log(msg: str) -> None:
@@ -350,6 +389,145 @@ def check_attention(gen) -> dict:
     return entry
 
 
+def _excess(got, want, tol: float) -> float:
+    """max(|got - want| - (tol + tol |want|)): <= 0 where rtol = atol = tol
+    holds."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - (tol + tol * want.abs())).max().item()
+
+
+TILE_ROWS = 64
+
+
+def tile_rel_err(got, want) -> float:
+    """The largest norm-wise relative error ||got - want|| / ||want|| over
+    the tiles of TILE_ROWS rows of one head of a [B, S, H, D] gradient. It
+    does not depend on the gradients' scale, and a wrong or skipped tile
+    shows wherever it lies. A tile whose reference is below 1e-6 of the
+    largest tile's norm (causal dK, dV of keys no query sees) is measured
+    against that floor."""
+    b, s, h, d = want.shape
+    shape = (b, s // TILE_ROWS, TILE_ROWS, h, d)
+    diff = (got.float() - want.float()).reshape(shape).norm(dim=(2, 4))
+    ref = want.float().reshape(shape).norm(dim=(2, 4))
+    floor = max(1e-6 * ref.max().item(), torch.finfo(torch.float32).tiny)
+    return (diff / ref.clamp(min=floor)).max().item()
+
+
+# The tight limit on tile_rel_err for K4 and K5 against their plain
+# versions. bf16: both sides compute in f32 and round to bf16, so an entry
+# differs by at most one bf16 ulp, which is at most 2**-7 = 7.8e-3 of it;
+# 1e-2 holds that with room, and a zeroed or skipped tile (1.0) fails it
+# by two orders of magnitude. f32: only the summation order differs.
+# Readings on an H100 (PERF.md): at most 2.5e-4 in bf16 (6.7e-4 in the
+# training step's layers) and 1.7e-7 in f32.
+BWD_TILE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def check_attention_backward(gen) -> tuple:
+    """K4 (``flash_backward_dq``) and K5 (``flash_backward_dkv``) against
+    their plain versions on the same inputs (q, k, v, dO, and o and LSE
+    from K3), held two ways: entry by entry at the JAX kernel tests'
+    rtol = atol (2e-4 in f32, 5e-2 in bf16), and tile by tile to
+    BWD_TILE_REL, which scales with the gradients. At the training shape
+    it also shows that a zeroed output, and one whose tiles past the
+    fourth are skipped, fail the tile check. The training shape (bf16,
+    causal) is timed against the plain versions and against the backward
+    of PyTorch's ``scaled_dot_product_attention``, which gives dQ, dK and
+    dV together (the library yardstick of both rows)."""
+    import torch.nn.functional as F
+
+    entries = {}
+    # (batch, sq, sk, heads, d, dtype, causal, g_lse); the first is the
+    # main path's (the training step's attention).
+    main = (TRAIN_BATCH, TRAIN.seq, TRAIN.seq, TRAIN.heads, TRAIN.head_dim,
+            torch.bfloat16, True, False)
+    cases = [main, main[:6] + (False, False)]
+    cases += [main[:5] + (torch.float32, c, False) for c in (True, False)]
+    cases += [(2, 256, 256, 2, 64, dt, c, False)
+              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [(2, sq, sk, 2, 64, torch.float32, c, False)
+              for sq, sk in ((128, 256), (256, 128)) for c in (True, False)]
+    cases += [(2, 256, 256, 2, 64, torch.float32, True, True)]
+    for b, sq, sk, h, d, dtype, causal, with_glse in cases:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                   .mul_(0.5).to(dtype) for s in (sq, sk, sk))
+        do = torch.randn((b, sq, h, d), generator=gen, device="cuda") \
+            .mul_(0.5).to(dtype)
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        delta = attention_delta(o, do)
+        g_lse = (torch.randn((b * h, sq), generator=gen, device="cuda")
+                 .mul_(0.5) if with_glse else None)
+        args = (q, k, v, do, lse, delta, causal, g_lse)
+        got = (flash_backward_dq(*args), *flash_backward_dkv(*args))
+        want = flash_backward_reference(*args)
+        torch.cuda.synchronize()
+        tol = 2e-4 if dtype == torch.float32 else 5e-2
+        rel_tol = BWD_TILE_REL[dtype]
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)]
+        rels = [tile_rel_err(g, w) for g, w in zip(got, want)]
+        worst = max(_excess(g, w, tol) for g, w in zip(got, want))
+        if worst > 0 or max(rels) > rel_tol:
+            raise AssertionError(
+                f"flash backward {dtype} [{b},{sq},{h},{d}] sk {sk} causal "
+                f"{causal} g_lse {with_glse}: max abs err dq/dk/dv {errs} "
+                f"(rtol = atol = {tol}), tile-wise relative error {rels} "
+                f"(limit {rel_tol})")
+        if (b, sq, sk, h, d, dtype, causal, with_glse) == main:
+            for g, w in zip(got, want):
+                skipped = g.clone()
+                skipped[:, 4 * TILE_ROWS:] = 0
+                if min(tile_rel_err(torch.zeros_like(g), w),
+                       tile_rel_err(skipped, w)) <= rel_tol:
+                    raise AssertionError("the tile check passes a zeroed or "
+                                         "tile-skipping output")
+                del skipped
+        del got, want
+        flops = 2.0 * b * h * sq * sk * d / (2.0 if causal else 1.0)
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        io = (2 * b * sq * h * d + 2 * b * sk * h * d) * q.element_size()
+        rows = b * h * sq * 4 * (3 if with_glse else 2)
+        line = (f"flash backward {str(dtype)[6:]} [{b},{sq},{h},{d}] sk {sk} "
+                f"{'causal' if causal else 'full'}"
+                f"{' g_lse' if with_glse else ''}: max abs err dq "
+                f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; "
+                f"tile-wise relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}"
+                f", dv {rels[2]:.3g}")
+        timed = {}
+        for name, fn, plain, n_mm, out_rows in (
+                ("K4", flash_backward_dq, flash_backward_dq_reference, 3, sq),
+                ("K5", flash_backward_dkv, flash_backward_dkv_reference, 4,
+                 2 * sk)):
+            ms = cuda_ms(lambda: fn(*args), 10)
+            plain_ms = cuda_ms(lambda: plain(*args), 3)
+            ops_ms = n_mm * flops / peak * 1e3
+            bytes_ms = (io + rows + b * out_rows * h * d * q.element_size()) \
+                / HBM_BYTES_PER_S * 1e3
+            timed[name] = dict(
+                max_abs_err=max(errs[:1] if name == "K4" else errs[1:]),
+                ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+            line += (f"; {name} {ms:.3f} ms ({n_mm * flops / ms / 1e9:.1f} "
+                     f"TFLOP/s), plain {plain_ms:.3f} ms, bound "
+                     f"{timed[name]['bound_ms']:.3f} ms")
+        if (b, sq, sk, h, d, dtype, causal, with_glse) == main:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            gt = do.transpose(1, 2)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), gt, retain_graph=True), 10)
+            line += f"; scaled_dot_product_attention backward {lib_ms:.3f} ms"
+            for name in timed:
+                entries[name] = dict(timed[name], library_ms=lib_ms)
+            del qt, kt, vt, out, gt
+        log(line)
+        del q, k, v, do, o, lse, delta, g_lse, args
+        torch.cuda.empty_cache()
+    return entries["K4"], entries["K5"]
+
+
 # -- main path ---------------------------------------------------------------
 
 class Scheduler:
@@ -435,16 +613,19 @@ def size_working_set(budget: int, physical: int) -> int:
     return chunks
 
 
-def measure_handoff_cycle(chunks: int, budget: int) -> float:
-    """Seconds of one warm handoff cycle of a dirty working set of
-    ``chunks`` chunks: a probe tenant generates it on the card, then evicts
-    it to pinned shadows and prefetches it back through the arena's own
-    DROP_LOCK/LOCK_OK hooks. The first, untimed round materializes the
-    shadows; PyTorch keeps the pinned blocks cached, so the timed round
-    (on a freshly generated set) and the burners that follow reuse them."""
+def probe_tenant(name: str, budget: int, make_set, workload=None) -> dict:
+    """One probe tenant: ``workload`` once (its result under "result"),
+    then the seconds of one warm handoff cycle (under "cycle_s") of the
+    dirty set ``make_set(arena)`` creates on the card, evicted to pinned
+    shadows and prefetched back through the arena's own DROP_LOCK/LOCK_OK
+    hooks. The first, untimed cycle materializes the shadows; PyTorch keeps
+    the pinned blocks cached, so the timed cycle (on a freshly made set)
+    and the tenants that follow reuse them."""
     out = {}
 
     def work(tenant: Tenant):
+        if workload is not None:
+            out["result"] = workload(tenant)
         a = tenant.arena
         # The probe pages explicitly while it holds the lock; count it as
         # an op in flight (the arena's busy signal), or the client's idle
@@ -452,34 +633,37 @@ def measure_handoff_cycle(chunks: int, budget: int) -> float:
         with a._lock:
             a._busy_depth += 1
         try:
-            cycles(a)
+            for timed in (False, True):
+                vas = make_set(a)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.sync_and_evict_all()
+                a.prefetch_hot()
+                torch.cuda.synchronize()
+                if timed:
+                    out["cycle_s"] = time.perf_counter() - t0
+                if not all(va.resident for va in vas):
+                    raise AssertionError("prefetch did not bring the set "
+                                         "back")
+                for va in vas:
+                    va.delete()
         finally:
             with a._lock:
                 a._busy_depth -= 1
 
-    def cycles(a):
-        for timed in (False, True):
-            vas = [a.device_array((CHUNK_SIDE, CHUNK_SIDE), torch.float32,
-                                  seed=i) for i in range(chunks)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            a.sync_and_evict_all()
-            a.prefetch_hot()
-            torch.cuda.synchronize()
-            if timed:
-                out["cycle_s"] = time.perf_counter() - t0
-            if not all(va.resident for va in vas):
-                raise AssertionError("prefetch did not bring the set back")
-            for va in vas:
-                va.delete()
-
-    probe = Tenant("handoff-probe", budget_bytes=budget,
-                   pool=vmem.PhysicalPool(budget))
+    probe = Tenant(name, budget_bytes=budget, pool=vmem.PhysicalPool(budget))
     try:
         probe.run(work)
     finally:
         probe.close()
-    return out["cycle_s"]
+    return out
+
+
+def measure_handoff_cycle(chunks: int, budget: int) -> float:
+    """Seconds of one warm handoff cycle of ``chunks`` dirty chunks."""
+    return probe_tenant("handoff-probe", budget, lambda a: [
+        a.device_array((CHUNK_SIDE, CHUNK_SIDE), torch.float32, seed=i)
+        for i in range(chunks)])["cycle_s"]
 
 
 def calibrate_step(kind: str, chunks: int, budget: int,
@@ -544,6 +728,67 @@ def check_pair(kind: str, names, stats: dict, drops: dict,
     return n_drop
 
 
+def run_pair(name: str, budget: int, sched: Scheduler, workload,
+             solo_fault, differs) -> dict:
+    """A solo tenant, then two co-located tenants sharing one pool of
+    ``budget``, each running a fresh ``workload()``. ``solo_fault(solo)``
+    and ``differs(result, solo)`` name what is wrong with the solo result
+    and how a co-located result differs from it (None where nothing is).
+    Both tenants must be granted and dropped at least twice and evict and
+    prefetch, and peak device memory must stay within the card."""
+    torch.cuda.reset_peak_memory_stats()
+    solo = Tenant(f"{name}-solo", budget_bytes=budget,
+                  pool=vmem.PhysicalPool(budget))
+    try:
+        t0 = time.time()
+        solo_res = solo.run(workload())
+        solo_wall = time.time() - t0
+    finally:
+        solo.close()
+    fault = solo_fault(solo_res)
+    if fault:
+        raise AssertionError(f"{name} solo: {fault}")
+    solo_peak = torch.cuda.max_memory_allocated()
+    pool = vmem.PhysicalPool(budget)
+    tenants = [Tenant(f"{name}-t{i}", budget_bytes=budget, pool=pool)
+               for i in (1, 2)]
+    try:
+        report = run_colocated({t: workload() for t in tenants},
+                               timeout_s=900)
+        stats, drops, handoff = pair_counters(tenants)
+    finally:
+        for t in tenants:
+            t.close()
+    if not report.ok:
+        raise RuntimeError(f"{name} co-located tenants failed: "
+                           f"{report.errors}")
+    for t in tenants:
+        why = differs(report.results[t.name], solo_res)
+        if why:
+            raise AssertionError(f"{t.name}: {why}")
+    n_drop = check_pair(name, [t.name for t in tenants], stats, drops,
+                        sched.text())
+    peak = torch.cuda.max_memory_allocated()
+    physical = torch.cuda.mem_get_info()[1]
+    if peak > physical:
+        raise AssertionError(f"peak allocated {peak} > physical {physical}")
+    h_sum = sum(s for s, _ in handoff.values())
+    h_n = sum(n for _, n in handoff.values())
+    res = {"solo": solo_res, "solo_s": solo_wall,
+           "makespan_s": report.makespan_s,
+           "ratio": report.makespan_s / (2.0 * solo_wall), "handoffs": h_n,
+           "handoff_mean_s": h_sum / max(h_n, 1), "drops": drops,
+           "solo_peak_bytes": solo_peak, "peak_bytes": peak, "stats": stats}
+    log(f"[{name}] solo wall {solo_wall:.2f} s, co-located makespan "
+        f"{report.makespan_s:.2f} s -> makespan/(2 x solo) "
+        f"{res['ratio']:.4f}; handoffs {h_n} mean "
+        f"{res['handoff_mean_s']:.3f} s; scheduler DROP_LOCKs {n_drop}; "
+        f"drops per tenant {drops}; peak allocated {solo_peak / GiB:.2f} "
+        f"GiB solo, {peak / GiB:.2f} GiB over the pair, of "
+        f"{physical / GiB:.2f} GiB")
+    return res
+
+
 def run_kind(kind: str, chunks: int, budget: int, sched: Scheduler,
              step_s: float, tq: int) -> dict:
     """Solo, then the co-located pair, of one burner kind."""
@@ -557,58 +802,14 @@ def run_kind(kind: str, chunks: int, budget: int, sched: Scheduler,
         return burner_workload(kind, wss, steps, chunks=chunks,
                                device_ratio=DEVICE_RATIO)
 
-    torch.cuda.reset_peak_memory_stats()
-    solo = Tenant(f"{kind}-solo", budget_bytes=budget,
-                  pool=vmem.PhysicalPool(budget))
-    try:
-        t0 = time.time()
-        solo_res = solo.run(workload())
-        solo_wall = time.time() - t0
-    finally:
-        solo.close()
-    if not solo_res.passed:
-        raise AssertionError(f"{kind} solo checksum not finite")
-    pool = vmem.PhysicalPool(budget)
-    tenants = [Tenant(f"{kind}-t{i}", budget_bytes=budget, pool=pool)
-               for i in (1, 2)]
-    try:
-        report = run_colocated({t: workload() for t in tenants},
-                               timeout_s=900)
-        stats, drops, handoff = pair_counters(tenants)
-    finally:
-        for t in tenants:
-            t.close()
-    if not report.ok:
-        raise RuntimeError(f"{kind} co-located tenants failed: "
-                           f"{report.errors}")
-    peak = torch.cuda.max_memory_allocated()
-    physical = torch.cuda.mem_get_info()[1]
-    for t in tenants:
-        res = report.results[t.name]
-        if not res.passed:
-            raise AssertionError(f"{t.name} checksum not finite")
-        if res.checksum != solo_res.checksum:
-            raise AssertionError(
-                f"{t.name} checksum {res.checksum!r} != solo "
-                f"{solo_res.checksum!r}")
-    n_drop = check_pair(kind, [t.name for t in tenants], stats, drops,
-                        sched.text())
-    if peak > physical:
-        raise AssertionError(f"peak allocated {peak} > physical {physical}")
-    h_sum = sum(s for s, _ in handoff.values())
-    h_n = sum(n for _, n in handoff.values())
-    ratio = report.makespan_s / (2.0 * solo_wall)
-    log(f"[{kind}] solo wall {solo_wall:.2f} s, co-located makespan "
-        f"{report.makespan_s:.2f} s -> makespan/(2 x solo) {ratio:.4f}; "
-        f"handoffs {h_n} mean {h_sum / max(h_n, 1):.3f} s; scheduler "
-        f"DROP_LOCKs {n_drop}; drops per tenant {drops}; peak allocated "
-        f"{peak / GiB:.2f} GiB of {physical / GiB:.2f} GiB; checksum "
-        f"{solo_res.checksum!r} (solo = both tenants)")
-    return {"kind": kind, "steps": steps, "tq_s": tq, "solo_s": solo_wall,
-            "makespan_s": report.makespan_s, "ratio": ratio,
-            "handoffs": h_n, "handoff_mean_s": h_sum / max(h_n, 1),
-            "drops": drops, "peak_bytes": peak, "stats": stats,
-            "wss_bytes": chunks * CHUNK_BYTES}
+    res = run_pair(
+        kind, budget, sched, workload,
+        lambda s: None if s.passed else "checksum not finite",
+        lambda r, s: None if r.checksum == s.checksum else
+        f"checksum {r.checksum!r} != solo {s.checksum!r}")
+    log(f"[{kind}] checksum {res['solo'].checksum!r} (solo = both tenants)")
+    res.update(kind=kind, steps=steps, tq_s=tq, wss_bytes=wss)
+    return res
 
 
 # -- the language model ------------------------------------------------------
@@ -800,124 +1001,56 @@ def check_lm_inference(budget: int) -> dict:
     return out
 
 
+def lm_workload_of(requests: int):
+    return lm_workload(LM, requests=requests, score_batch=SCORE_BATCH,
+                       decode_batch=DECODE_BATCH,
+                       decode_tokens=DECODE_TOKENS, seed=LM_SEED)
+
+
 def measure_lm(budget: int) -> dict:
     """One LM tenant's request time (the second of two requests) and one
-    warm handoff cycle of its parameters and cache: generated on the card,
-    evicted to pinned shadows and prefetched back through the arena's own
-    DROP_LOCK/LOCK_OK hooks; the first, untimed cycle materializes the
-    shadows. Both parts are dirty, so the cycle moves the whole set each
-    way, more than a serving handoff (clean parameters are dropped, not
-    written back): the quantum that follows is conservative."""
-    out = {}
+    warm handoff cycle of its parameters and cache. Both parts are dirty,
+    so the cycle moves the whole set each way, more than a serving handoff
+    (clean parameters are dropped, not written back): the quantum that
+    follows is conservative."""
+    def make_set(a):
+        params = vmem.vop(lambda dev: LM.init(LM_SEED, device=dev))(a.device)
+        cache = vmem.vop(lambda dev: init_kv_cache(
+            LM, DECODE_BATCH, LM.seq, device=dev))(a.device)
+        return [*params.values(), *cache.values()]
 
-    def work(tenant: Tenant):
-        res = lm_workload(LM, requests=2, score_batch=SCORE_BATCH,
-                          decode_batch=DECODE_BATCH,
-                          decode_tokens=DECODE_TOKENS, seed=LM_SEED)(tenant)
-        out["request_s"] = res.score_s[-1] + res.decode_s[-1]
-        a = tenant.arena
-        with a._lock:
-            a._busy_depth += 1  # the probe pages while it holds the lock
-        try:
-            for timed in (False, True):
-                params = vmem.vop(lambda dev: LM.init(LM_SEED, device=dev))(
-                    a.device)
-                cache = vmem.vop(lambda dev: init_kv_cache(
-                    LM, DECODE_BATCH, LM.seq, device=dev))(a.device)
-                vas = [*params.values(), *cache.values()]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                a.sync_and_evict_all()
-                a.prefetch_hot()
-                torch.cuda.synchronize()
-                if timed:
-                    out["cycle_s"] = time.perf_counter() - t0
-                if not all(va.resident for va in vas):
-                    raise AssertionError("prefetch did not bring the set "
-                                         "back")
-                for va in vas:
-                    va.delete()
-        finally:
-            with a._lock:
-                a._busy_depth -= 1
+    out = probe_tenant("lm-probe", budget, make_set, lm_workload_of(2))
+    res = out.pop("result")
+    return dict(out, request_s=res.score_s[-1] + res.decode_s[-1])
 
-    probe = Tenant("lm-probe", budget_bytes=budget,
-                   pool=vmem.PhysicalPool(budget))
-    try:
-        probe.run(work)
-    finally:
-        probe.close()
-    return out
+
+def lm_differs(res, solo):
+    if res.checksums != solo.checksums:
+        return f"scoring checksums {res.checksums} != solo {solo.checksums}"
+    if not (res.tokens == solo.tokens).all():
+        return "decoded other tokens than solo"
+    return None
 
 
 def run_lm(budget: int, sched: Scheduler, requests: int, tq: int) -> dict:
     """The LM serving pair: a solo tenant, then two co-located tenants,
     each holding its parameters and KV cache in its own arena."""
-    def workload():
-        return lm_workload(LM, requests=requests, score_batch=SCORE_BATCH,
-                           decode_batch=DECODE_BATCH,
-                           decode_tokens=DECODE_TOKENS, seed=LM_SEED)
-
     log(f"[lm] {requests} requests per tenant, TQ {tq} s")
-    torch.cuda.reset_peak_memory_stats()
-    solo = Tenant("lm-solo", budget_bytes=budget,
-                  pool=vmem.PhysicalPool(budget))
-    try:
-        t0 = time.time()
-        solo_res = solo.run(workload())
-        solo_wall = time.time() - t0
-    finally:
-        solo.close()
-    if not solo_res.passed:
-        raise AssertionError("lm solo checksums not finite")
-    pool = vmem.PhysicalPool(budget)
-    tenants = [Tenant(f"lm-t{i}", budget_bytes=budget, pool=pool)
-               for i in (1, 2)]
-    try:
-        report = run_colocated({t: workload() for t in tenants},
-                               timeout_s=900)
-        stats, drops, handoff = pair_counters(tenants)
-    finally:
-        for t in tenants:
-            t.close()
-    if not report.ok:
-        raise RuntimeError(f"lm co-located tenants failed: {report.errors}")
-    peak = torch.cuda.max_memory_allocated()
-    physical = torch.cuda.mem_get_info()[1]
-    for t in tenants:
-        res = report.results[t.name]
-        if res.checksums != solo_res.checksums:
-            raise AssertionError(f"{t.name} scoring checksums "
-                                 f"{res.checksums} != solo "
-                                 f"{solo_res.checksums}")
-        if not (res.tokens == solo_res.tokens).all():
-            raise AssertionError(f"{t.name} decoded other tokens than solo")
-    n_drop = check_pair("lm", [t.name for t in tenants], stats, drops,
-                        sched.text())
-    if peak > physical:
-        raise AssertionError(f"peak allocated {peak} > physical {physical}")
-    h_sum = sum(s for s, _ in handoff.values())
-    h_n = sum(n for _, n in handoff.values())
-    ratio = report.makespan_s / (2.0 * solo_wall)
+    res = run_pair("lm", budget, sched, lambda: lm_workload_of(requests),
+                   lambda s: None if s.passed else "checksums not finite",
+                   lm_differs)
+    solo = res["solo"]
     request_s = statistics.mean(
-        a + b for a, b in zip(solo_res.score_s, solo_res.decode_s))
-    token_ms = statistics.mean(solo_res.decode_s) / DECODE_TOKENS * 1e3
-    score_s = statistics.mean(solo_res.score_s)
-    log(f"[lm] solo wall {solo_wall:.2f} s, co-located makespan "
-        f"{report.makespan_s:.2f} s -> makespan/(2 x solo) {ratio:.4f}; "
-        f"solo request {request_s:.3f} s (scoring {score_s:.3f} s, decode "
-        f"{token_ms:.2f} ms/token at batch {DECODE_BATCH}); handoffs {h_n} "
-        f"mean {h_sum / max(h_n, 1):.3f} s; scheduler DROP_LOCKs {n_drop}; "
-        f"drops per tenant {drops}; peak allocated {peak / GiB:.2f} GiB of "
-        f"{physical / GiB:.2f} GiB; scoring checksums and "
-        f"{solo_res.tokens.size} decoded tokens equal solo in both tenants "
-        f"(first checksum {solo_res.checksums[0]!r})")
-    return {"requests": requests, "tq_s": tq, "solo_s": solo_wall,
-            "makespan_s": report.makespan_s, "ratio": ratio,
-            "request_s": request_s, "score_s": score_s,
-            "decode_token_ms": token_ms, "handoffs": h_n,
-            "handoff_mean_s": h_sum / max(h_n, 1), "drops": drops,
-            "peak_bytes": peak, "stats": stats}
+        a + b for a, b in zip(solo.score_s, solo.decode_s))
+    token_ms = statistics.mean(solo.decode_s) / DECODE_TOKENS * 1e3
+    score_s = statistics.mean(solo.score_s)
+    log(f"[lm] solo request {request_s:.3f} s (scoring {score_s:.3f} s, "
+        f"decode {token_ms:.2f} ms/token at batch {DECODE_BATCH}); scoring "
+        f"checksums and {solo.tokens.size} decoded tokens equal solo in "
+        f"both tenants (first checksum {solo.checksums[0]!r})")
+    res.update(requests=requests, tq_s=tq, request_s=request_s,
+               score_s=score_s, decode_token_ms=token_ms)
+    return res
 
 
 def lm_phases(phases: Phases, budget: int, physical: int,
@@ -951,6 +1084,264 @@ def lm_phases(phases: Phases, budget: int, physical: int,
     return res
 
 
+# -- LM training -------------------------------------------------------------
+
+# The full-width training step through the kernels against the same step
+# through the plain attention: both compute attention in f32 and round its
+# output and gradients to bf16, so they differ by a flip of the last bf16
+# bit here and there, which 24 layers of bf16 activations carry forward
+# and back (the same spread in the logits grows with depth, PERF.md).
+# Measured at 1.27e-2 norm-wise at most on an H100 (PERF.md); each
+# parameter's gradient is held to GRAD_REL, the loss to 1e-3 relative.
+# The kernels themselves are held per layer, tile by tile.
+GRAD_REL = 0.05
+# _matmul_f32's backward on the card (bf16 tensor-core products of the
+# bf16-rounded f32 cotangent, f32 accumulation) against the exact f32
+# products JAX takes, norm-wise: the cotangent's rounding (2**-9 an
+# element) averaged over each sum, which flips the bf16 result by one ulp
+# (2**-8 to 2**-7 of it) in part of the entries (3.2e-3 measured, PERF.md).
+MATMUL_BWD_REL = 5e-3
+
+
+def backward_tile_errs(q, k, v, do, causal: bool) -> list:
+    """tile_rel_err of K4's dQ and K5's dK, dV against the plain backward
+    on one layer's q, k, v and dO (o and LSE from K3 again: the kernels
+    are deterministic, so these are the bits the step's backward used)."""
+    with torch.no_grad():
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        args = (q, k, v, do, lse, attention_delta(o, do), causal)
+        got = (flash_backward_dq(*args), *flash_backward_dkv(*args))
+        want = flash_backward_reference(*args)
+        return [tile_rel_err(a, b) for a, b in zip(got, want)]
+
+
+def check_lm_training() -> dict:
+    """At full width and the pair's depth, one training step's loss and
+    gradients, outside any arena: the step through the kernels (its
+    launches and its peak device memory above the parameters); a second
+    step whose attention outputs carry a gradient hook, which holds K4 and
+    K5 against the plain backward on every layer's own q, k, v and dO
+    (tile_rel_err within the bf16 BWD_TILE_REL); the same step through
+    the plain attention (loss within 1e-3 relative, gradients within
+    GRAD_REL norm-wise); and ``_matmul_f32``'s backward at the head's
+    shape against exact f32 products (MATMUL_BWD_REL)."""
+    out = {}
+    params = TRAIN.init(TRAIN_SEED, device="cuda")
+    tokens = torch.from_numpy(synthetic_tokens(
+        TRAIN, TRAIN_BATCH, TRAIN_SEED + 1)).cuda()
+    counts = (flash_attention.launches, flash_backward_dq.launches,
+              flash_backward_dkv.launches)
+    for c in counts:
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss, grads = lm_loss_and_grads(params, TRAIN, tokens)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["transient_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["launches"] = [c.value for c in counts]
+    out["loss"] = loss.item()
+    kernel_grads = {k: g.cpu() for k, g in grads.items()}
+    del grads
+
+    layers = []  # per layer: tile_rel_err of dq, dk, dv
+
+    def hooked(q, k, v, causal):
+        o = flash_attention(q, k, v, causal=causal)
+        # With remat the block runs twice; only the first forward's output
+        # is on the backward's path, so each layer's hook fires once.
+        o.register_hook(lambda do: layers.append(
+            backward_tile_errs(q, k, v, do, causal)))
+        return o
+
+    lm_loss_and_grads(params, TRAIN, tokens, local_attn(TRAIN, hooked))
+    out["layers"] = layers
+
+    def plain(q, k, v, causal):
+        return flash_attention_reference(q, k, v, causal=causal)[0]
+
+    ref_loss, ref = lm_loss_and_grads(params, TRAIN, tokens,
+                                      local_attn(TRAIN, plain))
+    out["plain_loss"] = ref_loss.item()
+    grad_err = {}
+    for name, want in ref.items():
+        got = kernel_grads[name].cuda()
+        grad_err[name] = ((got - want).norm() / want.norm()).item()
+        del got
+    del ref
+    out["grad_rel"] = grad_err
+
+    # _matmul_f32 at the head's shape: x [B*S, D] bf16, w = embed^T bf16.
+    w = params["embed"].to(torch.bfloat16).t().requires_grad_()
+    x = torch.randn((TRAIN_BATCH * TRAIN.seq, TRAIN.dim), device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    g = torch.randn((x.shape[0], w.shape[1]), device="cuda") * 1e-4
+    _matmul_f32(x, w).backward(g)
+    exact = ((g @ w.detach().float().t()).to(torch.bfloat16),
+             (x.detach().float().t() @ g).to(torch.bfloat16))
+    out["matmul_bwd_rel"] = [
+        ((a.float() - b.float()).norm() / b.float().norm()).item()
+        for a, b in zip((x.grad, w.grad), exact)]
+    del params, tokens, kernel_grads, w, x, g, exact
+    torch.cuda.empty_cache()
+
+    L = TRAIN.depth
+    rel_tol = BWD_TILE_REL[torch.bfloat16]
+    err = [max(row[i] for row in out["layers"]) for i in range(3)]
+    log(f"[train] K4/K5 in each of {len(out['layers'])} layers against the "
+        f"plain backward on the layer's q, k, v, dO: largest tile-wise "
+        f"relative error dq {err[0]:.3g}, dk {err[1]:.3g}, dv {err[2]:.3g} "
+        f"(limit {rel_tol} {'holds' if max(err) <= rel_tol else 'FAILS'})")
+    worst_grad = max(grad_err, key=grad_err.get)
+    loss_rel = abs(out["loss"] - out["plain_loss"]) / abs(out["plain_loss"])
+    log(f"[train] step [{TRAIN_BATCH},{TRAIN.seq}] at {L} layers: "
+        f"{out['step_s']:.3f} s, loss {out['loss']:.6f} (plain attention "
+        f"{out['plain_loss']:.6f}, relative {loss_rel:.3g}); gradients vs "
+        f"plain attention, norm-wise relative error: max "
+        f"{grad_err[worst_grad]:.4g} ({worst_grad}), median "
+        f"{statistics.median(grad_err.values()):.4g}; launches K3/K4/K5 "
+        f"{out['launches']}; peak {out['transient_bytes'] / GiB:.2f} GiB "
+        f"above the parameters; _matmul_f32 backward vs exact f32 products "
+        f"dx {out['matmul_bwd_rel'][0]:.3g}, dw {out['matmul_bwd_rel'][1]:.3g}"
+        " norm-wise")
+    if max(err) > rel_tol or len(out["layers"]) != L:
+        raise AssertionError(f"K4/K5 at the LM's layers: {out['layers']}")
+    if out["launches"] != [2 * L, L, L]:
+        raise AssertionError(f"one step launched K3/K4/K5 "
+                             f"{out['launches']}, not {[2 * L, L, L]}")
+    if loss_rel > 1e-3 or grad_err[worst_grad] > GRAD_REL:
+        raise AssertionError(f"the kernel step vs the plain step: loss "
+                             f"relative {loss_rel}, gradients {grad_err}")
+    if max(out["matmul_bwd_rel"]) > MATMUL_BWD_REL:
+        raise AssertionError(f"_matmul_f32 backward {out['matmul_bwd_rel']}")
+    return out
+
+
+def size_train_pair(budget: int, physical: int, transient: int) -> dict:
+    """The training pair's sizes and budget. Each tenant holds f32
+    parameters and momentum; a step adds ``transient`` bytes (gradients,
+    activations, logits: measured by check_lm_training) that the arena
+    does not reserve, so both tenants get the arena's default ``budget``
+    (physical memory less the reserve) less that transient. Raises if
+    both tenants' pinned shadows (power-of-two rounding included) do not
+    fit in MemAvailable less the headroom, if a tenant's step beside the
+    other's state would fit in the card (the pair must page at every
+    handoff), or if one tenant's state does not fit the budget."""
+    params, opt = init_lm_state(TRAIN, device="meta")
+    sizes = [x.numel() * x.element_size()
+             for x in (*params.values(), *opt["m"].values())]
+    wss = sum(sizes)
+    pinned = sum(1 << (n - 1).bit_length() for n in sizes)
+    n_params = sum(x.numel() for x in params.values())
+    # The update's one temporary (lr * m of the largest parameter) on top.
+    budget = budget - transient - max(sizes)
+    avail, waited = settled_mem_available()
+    log(f"[train] GPT-3 6.7B widths at {TRAIN.depth} layers: "
+        f"{n_params / 1e9:.3f} B parameters; per tenant {wss / GiB:.2f} "
+        f"GiB of parameters and momentum on the card, {pinned / GiB:.2f} "
+        f"GiB of pinned shadows; a step adds {transient / GiB:.2f} GiB -> "
+        f"budget {budget / GiB:.2f} GiB of {physical / GiB:.2f} GiB; step "
+        f"beside the other tenant's state {(2 * wss + transient) / GiB:.2f}"
+        f" GiB = {(2 * wss + transient) / physical:.4f}x the card; pinned "
+        f"pair {2 * pinned / GiB:.2f} GiB against MemAvailable "
+        f"{avail / GiB:.2f} GiB (settled in {waited:.0f} s) less "
+        f"{HOST_HEADROOM / GiB:.0f} GiB headroom")
+    if 2 * pinned > avail - HOST_HEADROOM:
+        raise RuntimeError(
+            f"host memory cannot hold both training tenants' pinned shadows "
+            f"(2 x {pinned / GiB:.2f} GiB) at {TRAIN.depth} layers")
+    if 2 * wss + transient <= physical:
+        raise RuntimeError("a training step beside the other tenant's state "
+                           "fits in the card; the pair must oversubscribe it")
+    if wss >= budget:
+        raise RuntimeError(f"one tenant's state ({wss / GiB:.2f} GiB) does "
+                           f"not fit its budget ({budget / GiB:.2f} GiB)")
+    return {"params": n_params, "wss_bytes": wss, "pinned_bytes": pinned,
+            "budget": budget}
+
+
+def train_workload(steps: int):
+    return lm_train_workload(TRAIN, steps=steps, batch=TRAIN_BATCH,
+                             lr=TRAIN_LR, seed=TRAIN_SEED)
+
+
+def measure_train(budget: int) -> dict:
+    """One training tenant's step time (the second of two steps) and one
+    warm handoff cycle of its parameters and momentum. Both halves are
+    dirty after every step, so this is what each training handoff
+    moves."""
+    def make_set(a):
+        params, opt = vmem.vop(lambda dev: init_lm_state(
+            TRAIN, TRAIN_SEED, device=dev))(a.device)
+        return [*params.values(), *opt["m"].values()]
+
+    out = probe_tenant("train-probe", budget, make_set, train_workload(2))
+    return dict(out, step_s=out.pop("result").step_s[-1])
+
+
+def train_solo_fault(solo):
+    if solo.passed and solo.losses[-1] < solo.losses[0]:
+        return None
+    return f"losses {solo.losses}, checksum {solo.checksum}"
+
+
+def run_train(budget: int, sched: Scheduler, steps: int, tq: int) -> dict:
+    """The training pair: a solo tenant, then two co-located tenants, each
+    holding its parameters and momentum in its own arena. Every co-located
+    loss and the final checksum must equal the solo run's bit for bit;
+    the solo run's losses must be finite and its last below its first."""
+    log(f"[train] {steps} steps per tenant, TQ {tq} s, lr {TRAIN_LR}")
+    res = run_pair(
+        "train", budget, sched, lambda: train_workload(steps),
+        train_solo_fault,
+        lambda r, s: None if (r.losses, r.checksum) == (s.losses, s.checksum)
+        else f"losses {r.losses} checksum {r.checksum!r} != solo "
+             f"{s.losses} {s.checksum!r}")
+    solo = res["solo"]
+    step_s = statistics.median(solo.step_s)
+    log(f"[train] solo median step {step_s:.3f} s; losses "
+        f"{solo.losses[0]:.5f} -> {solo.losses[-1]:.5f}; all {steps} losses "
+        f"and the checksum {solo.checksum!r} equal solo in both tenants")
+    res.update(steps=steps, tq_s=tq, step_s=step_s, losses=solo.losses)
+    return res
+
+
+def train_phases(phases: Phases, budget: int, physical: int,
+                 sched: Scheduler) -> dict:
+    """The training phases: the full-width training check, the pair's
+    sizing, the step time and handoff cycle that set the quantum and the
+    number of steps, then the main path with K3, K4 and K5 counted."""
+    release_host_cache()
+    check = phases.run("check lm training", check_lm_training)
+    release_host_cache()
+    sizes = size_train_pair(budget, physical, check["transient_bytes"])
+    budget = sizes["budget"]
+    probe = phases.run("train handoff cycle", measure_train, budget)
+    tq = max(2, math.ceil(3.0 * probe["cycle_s"]))
+    sched.set_tq(tq)
+    # Each tenant's device work spans >= 3 quanta (dropped at least twice).
+    steps = max(3, math.ceil(3.0 * tq / probe["step_s"]) + 2)
+    log(f"[train] handoff cycle {probe['cycle_s']:.3f} s "
+        f"({sizes['wss_bytes'] / GiB:.2f} GiB out and back) -> TQ {tq} s; "
+        f"step {probe['step_s']:.3f} s -> {steps} steps")
+    counts = (flash_attention.launches, flash_backward_dq.launches,
+              flash_backward_dkv.launches)
+    for c in counts:
+        c.reset()
+    res = phases.run("main path train", run_train, budget, sched, steps, tq)
+    launches = [c.value for c in counts]
+    runs = 3 * steps  # solo + two co-located tenants
+    want = [2 * TRAIN.depth * runs, TRAIN.depth * runs, TRAIN.depth * runs]
+    if launches != want:
+        raise AssertionError(f"K3/K4/K5 launched {launches} times on the "
+                             f"training path, not {want}")
+    res.update(launches=launches, cycle_s=probe["cycle_s"], check=check,
+               **sizes)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -968,6 +1359,8 @@ def main() -> int:
     mix_entry = phases.run("check fused_mix", check_mix, gen)
     mm_entry = phases.run("check tiled_matmul", check_matmul, gen)
     att_entry = phases.run("check flash_attention", check_attention, gen)
+    dq_entry, dkv_entry = phases.run("check flash backward",
+                                     check_attention_backward, gen)
 
     os.environ["TPUSHARE_REQUIRE_SCHEDULER"] = "1"
     os.environ["TPUSHARE_PALLAS_MATMUL"] = "1"
@@ -1007,14 +1400,18 @@ def main() -> int:
                                     chunks, budget, sched, add_step, tq)
         mix_launches = fused_mix.launches.value
         lm = lm_phases(phases, budget, physical, sched)
+        train = train_phases(phases, budget, physical, sched)
     finally:
         sched.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     if mm_launches == 0 or mix_launches == 0:
         raise AssertionError(f"kernel launches on the main path: matmul "
                              f"{mm_launches}, mix {mix_launches}")
+    k3_launches, k4_launches, k5_launches = train["launches"]
     log(f"main-path launches: tiled_matmul {mm_launches}, fused_mix "
-        f"{mix_launches}, flash_attention {lm['launches']}")
+        f"{mix_launches}, flash_attention {lm['launches']} (serving) + "
+        f"{k3_launches} (training), flash_backward_dq {k4_launches}, "
+        f"flash_backward_dkv {k5_launches}")
     log("phase seconds: " + json.dumps(phases.seconds))
     log("measurements: " + json.dumps({
         "card": card,
@@ -1033,7 +1430,13 @@ def main() -> int:
             "request_s", "score_s", "decode_token_ms", "handoffs",
             "handoff_mean_s", "drops", "wss_bytes", "pinned_bytes")},
         "lm_peak_allocated_gib": lm["peak_bytes"] / GiB,
-        "lm_check": lm["check"]}))
+        "lm_check": lm["check"],
+        "train": {k: train[k] for k in (
+            "steps", "tq_s", "cycle_s", "solo_s", "makespan_s", "ratio",
+            "step_s", "losses", "handoffs", "handoff_mean_s", "drops",
+            "wss_bytes", "pinned_bytes", "budget", "solo_peak_bytes",
+            "peak_bytes")},
+        "train_check": train["check"]}))
     kernels = [
         dict(name="fused_mix", route="cuda",
              source="nvshare_tpu_torch/csrc/mix.cu",
@@ -1046,7 +1449,15 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="nvshare_tpu_torch/csrc/attention.cu",
              replaces="nvshare_tpu/ops/attention.py:120",
-             launches=lm["launches"], **att_entry),
+             launches=lm["launches"] + k3_launches, **att_entry),
+        dict(name="flash_backward_dq", route="cuda",
+             source="nvshare_tpu_torch/csrc/attention_bwd.cu",
+             replaces="nvshare_tpu/ops/attention.py:267",
+             launches=k4_launches, **dq_entry),
+        dict(name="flash_backward_dkv", route="cuda",
+             source="nvshare_tpu_torch/csrc/attention_bwd.cu",
+             replaces="nvshare_tpu/ops/attention.py:286",
+             launches=k5_launches, **dkv_entry),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the language model's inference time and rounding go, on one card.
+"""Where the language model's time and rounding go, on one card.
 
-    python3 lm_probe.py
+    python3 lm_probe.py [infer] [train]
 
 Needs one CUDA card and ``nvcc``, as ``chip_smoke.py`` does, and builds the
-flash-attention kernel the same way. At the widths ``chip_smoke.py`` runs
-(GPT-3 6.7B: 32 layers, d_model 4096, 32 heads, context 2048, vocabulary
-50257; random weights from seed 0) it measures, without the arena:
+flash-attention kernels the same way. Runs the named parts (both by
+default). ``infer``, at the widths ``chip_smoke.py`` serves (GPT-3 6.7B:
+32 layers, d_model 4096, 32 heads, context 2048, vocabulary 50257; random
+weights from seed 0), measures without the arena:
 
 1. one greedy decode step at batch 16 (host clock, synchronized), the
    same step on meta tensors (what ``vop`` runs to size its outputs), and
@@ -18,6 +19,13 @@ flash-attention kernel the same way. At the widths ``chip_smoke.py`` runs
    against the forward through the plain attention: max abs error, the
    share of logits outside rtol = atol = 2e-2, the norm-wise relative
    error and the argmax agreement.
+
+``train``, at the widths ``chip_smoke.py`` trains (the same model at 24
+layers, remat on, 4 x 2048 tokens a step), measures without the arena one
+``lm_train_step`` (host clock, synchronized), its pass on meta tensors
+(what ``vop`` runs once to size its outputs) and a profiler breakdown of
+one step: device time, host time, the device's idle share of the step,
+and the kernels with the most device time (K3, K4 and K5 among them).
 
 Prints one line per measurement and, last, the card's name and power limit
 and one JSON object of all of them.
@@ -38,9 +46,19 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import LM, card_line, logits_agreement, log  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    LM,
+    TRAIN,
+    TRAIN_BATCH,
+    TRAIN_LR,
+    card_line,
+    log,
+    logits_agreement,
+)
 from nvshare_tpu_torch.models.decode import decode_step, init_kv_cache  # noqa: E402
 from nvshare_tpu_torch.models.transformer import (  # noqa: E402
+    init_lm_state,
+    lm_train_step,
     local_attn,
     synthetic_tokens,
     transformer_forward,
@@ -89,13 +107,33 @@ def breakdown(fn, reps: int, top: int = 6) -> dict:
                 for e in kernels}}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("lm_probe: no CUDA device is available", file=sys.stderr)
-        return 2
-    card = card_line()
-    _build.build(["attention"])
-    out = {"card": card}
+def train_probe(out: dict) -> None:
+    """One training step at TRAIN's widths: wall, meta pass, breakdown."""
+    dev = torch.device("cuda")
+    params, opt = init_lm_state(TRAIN, 0, device=dev)
+    toks = torch.from_numpy(synthetic_tokens(TRAIN, TRAIN_BATCH, 1)).to(dev)
+
+    def step():
+        lm_train_step(params, opt, toks, TRAIN, TRAIN_LR)
+
+    mparams, mopt = init_lm_state(TRAIN, device="meta")
+    mtoks = torch.empty(toks.shape, dtype=toks.dtype, device="meta")
+    wall = wall_ms(step, 2)
+    parts = breakdown(step, 1, top=8)
+    out["train"] = {
+        "wall_ms": wall,
+        "meta_pass_ms": wall_ms(lambda: lm_train_step(
+            mparams, mopt, mtoks, TRAIN, TRAIN_LR), 1),
+        "device_idle_share": 1.0 - parts["device_ms"] / wall,
+        **parts}
+    log(f"train step [{TRAIN_BATCH},{TRAIN.seq}] at {TRAIN.depth} layers, "
+        f"remat: {json.dumps(out['train'])}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def infer_probe(out: dict) -> None:
+    """Decode and scoring at LM's widths, and the logits against depth."""
     dev = torch.device("cuda")
     params = LM.init(0, device=dev)
     meta = torch.device("meta")
@@ -141,6 +179,19 @@ def main() -> int:
         del got, want
         torch.cuda.empty_cache()
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("lm_probe: no CUDA device is available", file=sys.stderr)
+        return 2
+    parts = sys.argv[1:] or ["infer", "train"]
+    card = card_line()
+    _build.build(["attention", "attention_bwd"])
+    out = {"card": card}
+    if "train" in parts:
+        train_probe(out)
+    if "infer" in parts:
+        infer_probe(out)
     log(card)
     log(json.dumps(out))
     return 0

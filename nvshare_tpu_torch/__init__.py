@@ -18,16 +18,16 @@ Public surface:
     ``vop`` over nested dicts, lists and tuples of managed arrays.
   * :mod:`nvshare_tpu_torch.interpose` — the device-lock gate.
   * :mod:`nvshare_tpu_torch.colocate` — in-process multi-tenant harness
-    (burner and LM serving workloads).
+    (burner, LM serving and LM training workloads).
   * :mod:`nvshare_tpu_torch.models.burner` — the co-location burners.
   * :mod:`nvshare_tpu_torch.models.transformer` and
     :mod:`nvshare_tpu_torch.models.decode` — the transformer LM's scoring
-    forward and KV-cache decoding.
+    forward, KV-cache decoding and training step.
   * :mod:`nvshare_tpu_torch.ops` — ``fused_mix``, ``tiled_matmul`` and
-    the flash-attention forward (CUDA kernels on the card, plain PyTorch
-    on the CPU), and ``rope_rotate``.
+    flash attention forward and backward (CUDA kernels on the card, plain
+    PyTorch on the CPU), and ``rope_rotate``.
   * :mod:`nvshare_tpu_torch.convert` — carry numpy state (arrays, LM
-    parameters, KV caches) across.
+    parameters, KV caches, training state) across.
 """
 
 __version__ = "0.1.0"

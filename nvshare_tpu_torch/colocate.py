@@ -5,7 +5,9 @@ hosts several tenants, each with its *own* :class:`VirtualHBM` arena and
 its own scheduler registration, arbitrated by the real
 ``tpushare-scheduler``. Each hand-off swaps the outgoing tenant's working
 set out for the incoming one's. (CUDA also allows process tenants, each
-its own process; gating those is not ported yet.)
+its own process; gating those is not ported yet.) Workloads: the burners,
+an LM serving requests (:func:`lm_workload`) and an LM training
+(:func:`lm_train_workload`).
 """
 
 from __future__ import annotations
@@ -228,5 +230,75 @@ def lm_workload(model, *, requests: int, score_batch: int,
             va.delete()
         return LMResult(checksums, np.stack(tokens), score_s, decode_s,
                         time.perf_counter() - t_start)
+
+    return work
+
+
+@dataclass
+class LMTrainResult:
+    """What an LM training tenant did: the loss of every step, the f64 sum
+    of its final parameters and momentum, and host-clock seconds of each
+    step (each ends in reading its loss back, so they include the
+    device's work)."""
+
+    losses: list
+    checksum: float
+    step_s: list
+    wall_s: float
+
+    @property
+    def passed(self) -> bool:
+        return bool(np.isfinite(self.losses).all()
+                    and np.isfinite(self.checksum))
+
+
+def _state_sum(params: dict, opt_state: dict) -> torch.Tensor:
+    """The f64 sum of every parameter and momentum entry, on the device."""
+    leaves = [*params.values(), *opt_state["m"].values()]
+    return torch.stack([x.sum(dtype=torch.float64) for x in leaves]).sum()
+
+
+def lm_train_workload(model, *, steps: int, batch: int, lr: float = 1e-2,
+                      seed: int = 0) -> Callable[[Tenant], LMTrainResult]:
+    """A gated LM training workload for :func:`run_colocated`.
+
+    The tenant creates ``init_lm_state(model, seed)`` on its device
+    through a ``vop`` whose outputs its arena adopts. Each step is
+    ``vop(lm_train_step, static_argnums=(3,), donate_argnums=(0, 1))`` on
+    a fresh ``synthetic_tokens(model, batch, seed + 1 + s)`` batch, the
+    parameters and momentum updated in place. Every value is a function
+    of ``seed``, so a co-located run must reproduce a solo run bit for
+    bit.
+    """
+    from nvshare_tpu_torch.models.transformer import (
+        init_lm_state,
+        lm_train_step,
+        synthetic_tokens,
+    )
+
+    def work(tenant: Tenant) -> LMTrainResult:
+        a = tenant.arena
+        t_start = time.perf_counter()
+        params, opt_state = vmem.vop(
+            lambda dev: init_lm_state(model, seed, device=dev))(a.device)
+        step = vmem.vop(lm_train_step, static_argnums=(3,),
+                        donate_argnums=(0, 1))
+        losses, step_s = [], []
+        for s in range(steps):
+            tokens = a.array(synthetic_tokens(model, batch, seed + 1 + s))
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, tokens, model,
+                                           lr)
+            losses.append(float(loss.numpy()))
+            step_s.append(time.perf_counter() - t0)
+            tokens.delete()
+            loss.delete()
+            tenant.client.mark_activity()
+        checksum = float(vmem.vop(_state_sum)(params, opt_state).numpy())
+        # The job ends: its state goes, and is not paged out.
+        for va in [*params.values(), *opt_state["m"].values()]:
+            va.delete()
+        return LMTrainResult(losses, checksum, step_s,
+                             time.perf_counter() - t_start)
 
     return work

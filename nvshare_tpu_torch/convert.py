@@ -5,8 +5,9 @@ whose bits no PyTorch generator reproduces. State that both packages must
 share (the parity tests' working sets and parameters, a checkpoint)
 travels as numpy arrays: :func:`varrays_from_numpy` adopts them as one
 arena's managed arrays (``VArray.numpy`` reads them back), and
-:func:`transformer_params_from_numpy` and :func:`kv_cache_from_numpy` make
-a language model's parameter and cache dicts of them.
+:func:`transformer_params_from_numpy`, :func:`kv_cache_from_numpy` and
+:func:`lm_state_from_numpy` make a language model's parameter, cache and
+training-state dicts of them.
 """
 
 from __future__ import annotations
@@ -53,3 +54,13 @@ def kv_cache_from_numpy(cache: Mapping[str, np.ndarray],
     """A KV-cache dict (``k{i}``/``v{i}`` bf16 tensors [B, L, H, Dh] on
     ``device``, default ``cuda``) from numpy arrays."""
     return _tensors(cache, torch.bfloat16, device)
+
+
+def lm_state_from_numpy(params: Mapping[str, np.ndarray],
+                        opt_state: Mapping[str, Mapping[str, np.ndarray]],
+                        device: DeviceLike = None) -> tuple[dict, dict]:
+    """A training state ``(params, {"m": momentum})`` of f32 tensors on
+    ``device`` (default ``cuda``) from the numpy leaves of a JAX
+    ``init_lm_state`` pair (or of any later step's state)."""
+    return (transformer_params_from_numpy(params, device),
+            {"m": _tensors(opt_state["m"], torch.float32, device)})

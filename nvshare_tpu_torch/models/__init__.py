@@ -1,5 +1,5 @@
 """Workload models of the port: the co-location burners and the
-transformer LM's inference path (scoring forward and KV-cache decode)."""
+transformer LM (scoring forward, KV-cache decode, and training)."""
 
 from nvshare_tpu_torch.models.burner import (  # noqa: F401
     AddBurner,
@@ -15,6 +15,10 @@ from nvshare_tpu_torch.models.decode import (  # noqa: F401
 )
 from nvshare_tpu_torch.models.transformer import (  # noqa: F401
     Transformer,
+    init_lm_state,
+    lm_loss_and_grads,
+    lm_train_step,
+    make_optim_lm_step,
     synthetic_tokens,
     transformer_forward,
 )

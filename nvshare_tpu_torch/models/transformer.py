@@ -1,8 +1,7 @@
-"""A causal transformer LM: the inference half of
-``nvshare_tpu/models/transformer.py``.
+"""A causal transformer LM: the port of ``nvshare_tpu/models/transformer.py``.
 
 Pre-norm blocks with RMSNorm, a tanh-gelu MLP, multi-head attention
-through the flash kernel (:func:`~nvshare_tpu_torch.ops.flash_attention`),
+through the flash kernels (:func:`~nvshare_tpu_torch.ops.flash_attention`),
 optional RoPE on q/k and a tied embedding head; f32 master parameters,
 bf16 compute. Parameters are a plain dict with the JAX package's names,
 so :func:`nvshare_tpu_torch.convert.transformer_params_from_numpy` carries
@@ -14,8 +13,14 @@ anyway (qkv, proj, and the FFN's down projection before the residual add)
 the port takes PyTorch's bf16 product, which accumulates in f32 and rounds
 its result to bf16 once: the same values up to summation order. The FFN's
 up projection (whose f32 result feeds the gelu) and the head (f32 logits)
-keep the f32 result, through :func:`_matmul_f32`. Training (the loss, the
-optimizer update, the train step) comes with the training slice.
+keep the f32 result, through :func:`_matmul_f32`, whose backward is its
+own (see :class:`_MatmulF32`).
+
+Training: :func:`_lm_loss` (next-token cross-entropy), the momentum-SGD
+update :func:`sgd_momentum_update`, :func:`lm_train_step`,
+:func:`init_lm_state`, and :func:`make_optim_lm_step` for any
+``torch.optim`` optimizer. ``Transformer.remat`` recomputes every block in
+the backward (:func:`torch.utils.checkpoint.checkpoint`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nvshare_tpu_torch.device import DeviceLike, resolve_device
 from nvshare_tpu_torch.device import generator as _seeded
@@ -51,7 +57,7 @@ class Transformer:
     depth: int = 2
     seq: int = 128
     mlp_mult: int = 4
-    remat: bool = False  # checkpointing comes with training; no forward change
+    remat: bool = False  # recompute blocks in the backward (forward_blocks)
     rope: bool = False   # rotary position embeddings on q/k (ops/rope.py)
 
     @property
@@ -95,17 +101,51 @@ def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (x32 * scale * g).to(x.dtype)
 
 
+def _matmul_f32_grads(x2: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                      tensor_cores: bool) -> tuple:
+    """(dx, dw) of ``x2 @ w`` with an f32 result, in x2's and w's (bf16)
+    types, for the f32 cotangent ``g``.
+
+    JAX transposes a ``preferred_element_type=f32`` product into f32
+    products of ``g`` and the other bf16 operand, rounded to bf16 once.
+    ``tensor_cores=False`` computes exactly that (in f32: the CPU and meta
+    route). ``tensor_cores=True`` rounds ``g`` to bf16 first and takes
+    bf16 products with f32 accumulation, the card's route: an f32 product
+    of these sizes runs on the CUDA cores at a fifteenth of the
+    tensor-core rate. The two differ by the rounding of ``g`` (relative
+    2**-9 an element, averaged over the sum); the tests and
+    ``chip_smoke.py`` state the tolerance."""
+    if tensor_cores:
+        gb = g.to(x2.dtype)
+        return torch.mm(gb, w.t()), torch.mm(x2.t(), gb)
+    return ((g @ w.float().t()).to(x2.dtype),
+            (x2.float().t() @ g).to(w.dtype))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x2 @ w`` of bf16 operands with an f32 result. PyTorch has no
+    derivative for ``mm`` with ``out_dtype``, so the backward is this
+    Function's own (:func:`_matmul_f32_grads`)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        if x2.device.type == "cuda":
+            # Tensor cores, f32 accumulation and result.
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        # The CPU has no such mm, and the meta pass only needs the shape.
+        return x2.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        return _matmul_f32_grads(x2, w, g, x2.device.type == "cuda")
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` of bf16 operands with an f32 result, as a JAX matmul with
-    ``preferred_element_type=f32``: on the card PyTorch's ``mm`` with
-    ``out_dtype`` (tensor cores, f32 accumulation and result); elsewhere
-    (the CPU has no such ``mm``, and the meta pass only needs the shape)
-    the bf16 operands multiplied in f32."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda":
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w.float()
+    ``preferred_element_type=f32`` (:class:`_MatmulF32`)."""
+    out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -155,16 +195,33 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def forward_blocks(params: dict, model, tokens: torch.Tensor,
                    attn_fn: Callable, ffn_fn: Callable):
     """The block stack: tokens [B, S] -> (logits [B, S, vocab] f32, mean
-    aux). ``ffn_fn(params, i, x) -> (y f32, aux)``. ``model.remat`` is
-    accepted and changes no forward value."""
+    aux). ``ffn_fn(params, i, x) -> (y f32, aux)``.
+
+    ``model.remat`` runs every block under
+    :func:`torch.utils.checkpoint.checkpoint` (non-reentrant) when a
+    gradient is being recorded: the backward recomputes each block's
+    internals from its input instead of keeping them, so activation
+    memory falls from depth x intermediates to depth x block inputs, at
+    the price of a second forward (attention runs twice a layer). The
+    values are the same bits as without it."""
     h = _embed(params, tokens)                              # [B, S, D]
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = getattr(model, "remat", False) and torch.is_grad_enabled()
     for i in range(model.depth):
         bp = {"qkv": params[f"qkv{i}"], "proj": params[f"proj{i}"],
               "ln1": params[f"ln1_{i}"], "ln2": params[f"ln2_{i}"]}
-        h, aux = transformer_block(
-            bp, h, heads=model.heads, attn_fn=attn_fn,
-            ffn=lambda z, _i=i: ffn_fn(params, _i, z))
+
+        def block(h, bp=bp, i=i):
+            return transformer_block(
+                bp, h, heads=model.heads, attn_fn=attn_fn,
+                ffn=lambda z: ffn_fn(params, i, z))
+
+        if remat:
+            # No random draws in a block, so no RNG state to carry.
+            h, aux = checkpoint(block, h, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            h, aux = block(h)
         aux_total = aux_total + aux
     return lm_head(params, h), aux_total / model.depth
 
@@ -211,3 +268,84 @@ def synthetic_tokens(model: Transformer, batch: int, seed: int = 0
     noise = rng.rand(batch, model.seq + 1) < 0.02
     ramp[noise] = rng.randint(0, model.vocab, size=noise.sum())
     return ramp.astype(np.int32)
+
+
+# -- training ----------------------------------------------------------------
+
+def _lm_loss(params: dict, model: Transformer, tokens: torch.Tensor,
+             attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy of tokens [B, S+1]: the forward on
+    ``tokens[:, :-1]`` scored against ``tokens[:, 1:]``. ``attn_fn`` as
+    in :func:`transformer_forward`."""
+    logits = transformer_forward(params, model, tokens[:, :-1], attn_fn)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    targets = tokens[:, 1:].long().unsqueeze(-1)
+    return -logp.gather(-1, targets).mean()
+
+
+def lm_loss_and_grads(params: dict, model: Transformer,
+                      tokens: torch.Tensor,
+                      attn_fn: Optional[Callable] = None) -> tuple:
+    """(loss, {name: gradient}) of :func:`_lm_loss` at ``params`` (the
+    counterpart of ``jax.value_and_grad(_lm_loss)``). ``params`` are not
+    changed and gain no gradient; the loss comes back detached."""
+    with torch.enable_grad():
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss = _lm_loss(leaves, model, tokens, attn_fn)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def sgd_momentum_update(params: dict, opt_state: dict, grads: dict,
+                        lr: float) -> tuple[dict, dict]:
+    """The one shared optimizer update, momentum 0.9 SGD: m = 0.9 m + g,
+    p = p - lr m. In place on ``params`` and ``opt_state["m"]`` (the
+    counterpart of the JAX step's donated state); returns them."""
+    with torch.no_grad():
+        for name, p in params.items():
+            m = opt_state["m"][name]
+            m.mul_(0.9).add_(grads[name])
+            p.sub_(m * lr)
+    return params, opt_state
+
+
+def lm_train_step(params: dict, opt_state: dict, tokens: torch.Tensor,
+                  model: Transformer, lr: float = 1e-2) -> tuple:
+    """One momentum-SGD LM step: ``(params, opt_state, loss)``.
+
+    PyTorch has no buffer donation, so the update runs in place on the
+    parameter and momentum storage it is given (under :func:`vmem.vop`,
+    pass both in ``donate_argnums``). The peak is then one copy of the
+    state, plus the f32 gradients, plus the activations the backward
+    keeps (one block input a layer with ``model.remat``), never a second
+    copy of the state. The loss comes back detached, and the returned
+    tensors carry no autograd graph."""
+    loss, grads = lm_loss_and_grads(params, model, tokens)
+    sgd_momentum_update(params, opt_state, grads, lr)
+    return params, opt_state, loss
+
+
+def make_optim_lm_step(model: Transformer,
+                       optimizer: torch.optim.Optimizer) -> Callable:
+    """An LM train step driven by a ``torch.optim`` optimizer (AdamW,
+    schedules, ...) instead of the built-in momentum SGD: the counterpart
+    of ``make_optax_lm_step``. Returns ``step(params, tokens) -> loss``;
+    ``params`` is the dict of leaf tensors (``requires_grad=True``) the
+    optimizer was built over, updated in place, and the optimizer holds
+    its own state."""
+    def step(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = _lm_loss(params, model, tokens)
+            loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def init_lm_state(model: Transformer, seed: int = 0,
+                  device: DeviceLike = None) -> tuple[dict, dict]:
+    """(params, {"m": zero momentum}) on ``device`` (default ``cuda``)."""
+    params = model.init(seed, device=device)
+    return params, {"m": {k: torch.zeros_like(p) for k, p in params.items()}}

@@ -1,9 +1,15 @@
 """The port's hot ops: CUDA kernels on the card, plain PyTorch on the CPU."""
 
 from nvshare_tpu_torch.ops.attention import (  # noqa: F401
+    attention_delta,
     flash_attention,
     flash_attention_lse,
     flash_attention_reference,
+    flash_backward_dkv,
+    flash_backward_dkv_reference,
+    flash_backward_dq,
+    flash_backward_dq_reference,
+    flash_backward_reference,
     reference_attention,
 )
 from nvshare_tpu_torch.ops.matmul import (  # noqa: F401

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = {"mix": "mix.cu", "matmul": "matmul.cu",
-           "attention": "attention.cu"}
+           "attention": "attention.cu", "attention_bwd": "attention_bwd.cu"}
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -144,6 +144,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.tpushare_flash_forward
         ll = ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, *([ll] * 9), i, i, f, p]
+    elif name == "attention_bwd":
+        ll = ctypes.c_longlong
+        for fn, outs in ((lib.tpushare_flash_backward_dq, 1),
+                         (lib.tpushare_flash_backward_dkv, 2)):
+            fn.argtypes = [*([p] * (7 + outs)), i, i, i, i, i,
+                           *([ll] * 12), i, i, f, p]
+            fn.restype = ctypes.c_int
+        return
     else:
         raise KeyError(name)
     fn.restype = ctypes.c_int

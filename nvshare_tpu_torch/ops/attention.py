@@ -1,18 +1,25 @@
-"""Flash attention, forward: exact attention over [B, S, H, D] inputs.
+"""Flash attention, forward and backward, over [B, S, H, D] inputs.
 
-The port of the forward half of ``nvshare_tpu/ops/attention.py`` (the
-Pallas ``_flash_kernel``). On CUDA tensors :func:`flash_attention` and
-:func:`flash_attention_lse` launch the hand-written kernel in
-``csrc/attention.cu``, which reads q, k and v strided as they lie (no
-transposes) and computes in f32 with an online softmax over key tiles; on
-CPU or meta tensors they run :func:`flash_attention_reference`, the plain
-version. The reference's eligibility rule is kept: ``seq % 128 == 0`` and
-``d <= 128`` take the kernel, anything else takes
-:func:`reference_attention` on any device, as the JAX wrapper does.
+The port of ``nvshare_tpu/ops/attention.py``. On CUDA tensors
+:func:`flash_attention` and :func:`flash_attention_lse` launch the
+hand-written forward kernel (K3, ``csrc/attention.cu``), which reads q, k
+and v strided as they lie (no transposes) and computes in f32 with an
+online softmax over key tiles; on CPU or meta tensors they run
+:func:`flash_attention_reference`, the plain version. The reference's
+eligibility rule is kept: ``seq % 128 == 0`` and ``d <= 128`` take the
+kernel, anything else takes :func:`reference_attention` on any device, as
+the JAX wrapper does.
 
-Both run inside a :class:`torch.autograd.Function` whose backward raises:
-the backward kernels come with the training slice, and no gradient flows
-silently through the plain version meanwhile.
+Both run inside a :class:`torch.autograd.Function`. Its backward saves
+q, k, v, the output and the LSE, and recomputes the probabilities from
+the LSE in two kernels (``csrc/attention_bwd.cu``): the dQ sweep
+:func:`flash_backward_dq` (K4) and the dK/dV sweep
+:func:`flash_backward_dkv` (K5), one writer per output tile, no atomics.
+The LSE output's cotangent folds into dS, so :func:`flash_attention_lse`
+is differentiable in both outputs. On CPU or meta tensors the wrappers run
+their plain versions (together, :func:`flash_backward_reference`); the
+ragged route differentiates :func:`reference_attention`, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -64,6 +71,59 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse.reshape(b * h, sq)
 
 
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, [B*H, S]: the softmax Jacobian's row
+    term of the backward (O(S*D) elementwise, outside the kernels as in
+    the JAX package)."""
+    b, s, h, _ = o.shape
+    delta = (do.float() * o.float()).sum(dim=-1)            # [B, S, H]
+    return delta.transpose(1, 2).reshape(b * h, s)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal: bool, g_lse) -> tuple:
+    """(p, dS) [B, H, Sq, Sk] in f32, the whole score matrix at once: p
+    recomputed from the saved ``lse`` [B*H, Sq], dP = dO v^T, dS = p (dP -
+    delta + g_lse) / sqrt(d)."""
+    b, sq, h, d = q.shape
+    rows = (b, h, sq, 1)
+    s = _scores(q, k, causal)                    # -1e30 where masked
+    p = torch.exp(s - lse.reshape(rows))         # masked entries: exactly 0
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    row = delta if g_lse is None else delta - g_lse
+    return p, p * (dp - row.reshape(rows)) * (1.0 / math.sqrt(d))
+
+
+def flash_backward_dq_reference(q, k, v, do, lse, delta,
+                                causal: bool = False, g_lse=None
+                                ) -> torch.Tensor:
+    """K4's plain version: dQ = dS k in q's type."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, g_lse)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+
+
+def flash_backward_dkv_reference(q, k, v, do, lse, delta,
+                                 causal: bool = False, g_lse=None
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain version: dK = dS^T q and dV = p^T dO in k's and v's
+    types."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, g_lse)
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.float()).to(v.dtype))
+
+
+def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, delta: torch.Tensor,
+                             causal: bool = False,
+                             g_lse: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, ...]:
+    """The plain PyTorch version of the backward kernels: ``(dq, dk, dv)``
+    in q's, k's and v's types, with the whole score matrix in f32."""
+    args = (q, k, v, do, lse, delta, causal, g_lse)
+    return (flash_backward_dq_reference(*args),
+            *flash_backward_dkv_reference(*args))
+
+
 def _kernel_shapes_ok(sq: int, sk: int, d: int) -> bool:
     return not (sq % _BQ or sk % _BK or d > 128)
 
@@ -111,20 +171,124 @@ def _forward(q, k, v, causal: bool):
     return _launch(q, k, v, causal)
 
 
+def _launch_backward(which: str, q, k, v, do, lse, delta, g_lse,
+                     causal: bool):
+    """Run K4 (``which="dq"``) or K5 (``"dkv"``) on CUDA tensors of
+    eligible shapes; returns the kernel's outputs."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (b, sk, h, d) or v.shape != k.shape or \
+            do.shape != q.shape:
+        raise ValueError(f"flash backward takes q, dO [B,Sq,H,D] and k, v "
+                         f"[B,Sk,H,D]; got q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"dO{tuple(do.shape)}")
+    rows = [x for x in (lse, delta, g_lse) if x is not None]
+    if not (q.device == k.device == v.device == do.device) or \
+            any(x.device != q.device for x in rows) or \
+            not (q.dtype == k.dtype == v.dtype == do.dtype):
+        raise TypeError("flash backward kernels take q, k, v and dO of one "
+                        "dtype, and the row terms, on one device")
+    if any(x.dtype != torch.float32 or x.shape != (b * h, sq)
+           for x in rows):
+        raise ValueError(f"lse, delta and g_lse must be float32 "
+                         f"[{b * h}, {sq}]")
+    code = _build.dtype_code(q.dtype, "flash backward")
+    q, k, v, do = (x if x.stride(-1) == 1 else x.contiguous()
+                   for x in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    g_lse = None if g_lse is None else g_lse.contiguous()
+    lib = _build.load("attention_bwd")
+    strides = (q.stride(0), q.stride(1), q.stride(2),
+               k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2),
+               do.stride(0), do.stride(1), do.stride(2))
+    if which == "dq":
+        outs = (torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device),)
+        fn = lib.tpushare_flash_backward_dq
+    else:
+        outs = tuple(torch.empty((b, sk, h, d), dtype=q.dtype,
+                                 device=q.device) for _ in range(2))
+        fn = lib.tpushare_flash_backward_dkv
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                None if g_lse is None else g_lse.data_ptr(),
+                *(o.data_ptr() for o in outs), b, h, sq, sk, d, *strides,
+                int(causal), code, 1.0 / math.sqrt(d), stream)
+    _build.check(rc, f"flash backward ({which})")
+    return outs
+
+
+def flash_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, causal: bool = False,
+                      g_lse: torch.Tensor | None = None) -> torch.Tensor:
+    """dQ [B,Sq,H,D] in q's type: K4 on a CUDA tensor, the plain version
+    (:func:`flash_backward_dq_reference`) on a CPU or meta tensor.
+    Kernel-eligible shapes only."""
+    if q.device.type != "cuda":
+        return flash_backward_dq_reference(q, k, v, do, lse, delta, causal,
+                                           g_lse)
+    (dq,) = _launch_backward("dq", q, k, v, do, lse, delta, g_lse, causal)
+    flash_backward_dq.launches.add()
+    return dq
+
+
+def flash_backward_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, causal: bool = False,
+                       g_lse: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) [B,Sk,H,D] in k's and v's types: K5 on a CUDA tensor, the
+    plain version on a CPU or meta tensor. Kernel-eligible shapes only."""
+    if q.device.type != "cuda":
+        return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal,
+                                            g_lse)
+    dk, dv = _launch_backward("dkv", q, k, v, do, lse, delta, g_lse, causal)
+    flash_backward_dkv.launches.add()
+    return dk, dv
+
+
+flash_backward_dq.launches = _build.LaunchCount()
+flash_backward_dkv.launches = _build.LaunchCount()
+
+
+def _flash_backward(q, k, v, o, lse, g, causal: bool, g_lse=None):
+    """(dq, dk, dv) of the kernel route: delta, then K4 and K5 (their
+    plain versions on CPU or meta tensors)."""
+    delta = attention_delta(o, g)
+    dq = flash_backward_dq(q, k, v, g, lse, delta, causal, g_lse)
+    dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, causal, g_lse)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward only: the backward kernels are the training slice's."""
+    """The kernel forward, and a backward through K4 and K5 (or, on the
+    ragged route, through the oracle's own autograd)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, with_lse: bool):
         out, lse = _forward(q, k, v, causal)
+        ctx.causal = causal
+        if lse is None:   # ragged: the backward re-runs the oracle
+            ctx.save_for_backward(q, k, v)
+        else:
+            ctx.save_for_backward(q, k, v, out, lse)
         return (out, lse) if with_lse else out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash attention has no backward in nvshare_tpu_torch yet: the "
-            "backward kernels (the dQ sweep and the dK/dV sweep of "
-            "nvshare_tpu/ops/attention.py) come with the training slice")
+    def backward(ctx, g, g_lse=None):
+        saved = ctx.saved_tensors
+        if len(saved) == 3:
+            with torch.enable_grad():
+                prim = [x.detach().requires_grad_() for x in saved]
+                out = reference_attention(*prim, causal=ctx.causal)
+                grads = torch.autograd.grad(out, prim, g)
+        else:
+            grads = _flash_backward(*saved, g, ctx.causal, g_lse)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,7 +297,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Shapes with seq % 128 == 0 and dim <= 128 take the kernel (on a CUDA
     tensor) or its plain version (on a CPU or meta tensor); anything else
-    takes :func:`reference_attention` (same math). Forward only.
+    takes :func:`reference_attention` (same math). Differentiable: the
+    backward runs K4 and K5 (or their plain version on the CPU).
     """
     return _FlashAttention.apply(q, k, v, causal, False)
 
@@ -143,7 +308,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flash attention that also returns the per-row log-sum-exp:
     ``(out [B,S,H,D], lse [B*H, S] f32)``. Kernel-eligible shapes only
-    (seq % 128 == 0, dim <= 128): the ragged route has no LSE."""
+    (seq % 128 == 0, dim <= 128): the ragged route has no LSE.
+    Differentiable in both outputs: the LSE's cotangent folds into dS."""
     if not _kernel_shapes_ok(q.shape[1], k.shape[1], q.shape[-1]):
         raise ValueError(
             f"flash_attention_lse requires kernel-eligible shapes "
@@ -152,6 +318,6 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal, True)
 
 
-# One count for both entry points: each launch of the kernel adds one.
+# One count for both entry points: each launch of K3 adds one.
 flash_attention.launches = _build.LaunchCount()
 flash_attention_lse.launches = flash_attention.launches

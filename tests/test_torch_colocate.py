@@ -80,3 +80,48 @@ def test_tenant_refuses_unported_options(tmp_path, monkeypatch):
     monkeypatch.setenv("TPUSHARE_FLEET", "1")
     with pytest.raises(NotImplementedError):
         Tenant("torch-fleet", device="cpu")
+
+
+def _train_run(names, budget):
+    from nvshare_tpu_torch.colocate import lm_train_workload
+    from nvshare_tpu_torch.models.transformer import Transformer
+
+    # Dozens of steps a tenant: several 1 s quanta on the CPU.
+    model = Transformer(vocab=64, dim=128, heads=4, depth=2, seq=128,
+                        rope=True, remat=True)
+    pool = vmem.PhysicalPool(budget)
+    tenants = [Tenant(n, budget_bytes=budget, device="cpu", pool=pool)
+               for n in names]
+    try:
+        report = run_colocated(
+            {t: lm_train_workload(model, steps=60, batch=4, lr=1e-2,
+                                  seed=3) for t in tenants}, timeout_s=180)
+        snaps = {t.name: t.telemetry_snapshot() for t in tenants}
+        drops = {t.name: int(t.client._m["drops"].value) for t in tenants}
+    finally:
+        for t in tenants:
+            t.close()
+    assert report.ok, report.errors
+    return report, snaps, drops
+
+
+def test_training_pair_under_the_scheduler_equals_solo(sched_env):
+    """Two training tenants (remat, flash forward and backward, state
+    donated and updated in place) under the real scheduler: every loss
+    and the final f64 checksum of parameters and momentum equal the solo
+    run's bit for bit, and both tenants hand their state off."""
+    solo, _, _ = _train_run(["train-solo"], 8 * MB)
+    pair, snaps, drops = _train_run(["train-t1", "train-t2"], 8 * MB)
+    err = sched_env.stop()
+    want = solo.results["train-solo"]
+    assert want.passed and len(want.losses) == 60
+    assert want.losses[-1] < want.losses[0] - 0.5, want.losses
+    assert "DROP_LOCK" in err, f"TQ never expired: {err}"
+    assert sum(drops.values()) >= 1
+    for name in ("train-t1", "train-t2"):
+        assert f"LOCK_OK -> {name} " in err, err
+        got = pair.results[name]
+        assert got.losses == want.losses, name
+        assert got.checksum == want.checksum, name
+        assert snaps[name]["handoff_evicts"] > 0, snaps
+        assert snaps[name]["prefetches"] > 0, snaps

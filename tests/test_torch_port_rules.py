@@ -115,10 +115,37 @@ def test_model_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         == "cpu"
 
 
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda, monkeypatch):
+    from nvshare_tpu_torch import colocate
+    from nvshare_tpu_torch.convert import lm_state_from_numpy
+    from nvshare_tpu_torch.models import Transformer, init_lm_state
+
+    monkeypatch.setenv("TPUSHARE_SOCK_DIR", "/nonexistent")
+    model = Transformer(vocab=16, dim=32, heads=2, depth=1, seq=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lm_state(model)
+    ones = {"ln_f": np.ones(32, np.float32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_state_from_numpy(ones, {"m": ones})
+    # The training workload runs on its tenant's device, which defaults
+    # to cuda: building it is free, a tenant to run it raises.
+    work = colocate.lm_train_workload(model, steps=1, batch=1)
+    assert callable(work)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        colocate.Tenant("train-no-card")
+    params, opt = init_lm_state(model, device="cpu")
+    assert params["embed"].device.type == opt["m"]["embed"].device.type \
+        == "cpu"
+
+
 def test_wrappers_on_cpu_tensors_never_touch_the_kernels(no_cuda):
     from nvshare_tpu_torch.ops import (
+        attention_delta,
         flash_attention,
         flash_attention_lse,
+        flash_backward_dkv,
+        flash_backward_dq,
         fused_mix,
         tiled_matmul,
     )
@@ -126,12 +153,21 @@ def test_wrappers_on_cpu_tensors_never_touch_the_kernels(no_cuda):
     a = torch.rand(256, 256)
     q = torch.rand(1, 256, 2, 64)
     counts = (fused_mix.launches, tiled_matmul.launches,
-              flash_attention.launches)
+              flash_attention.launches, flash_backward_dq.launches,
+              flash_backward_dkv.launches)
     before = [c.value for c in counts]
     fused_mix(a, a)
     tiled_matmul(a, a)
     flash_attention(q, q, q, causal=True)
-    flash_attention_lse(q, q, q)
+    o, lse = flash_attention_lse(q, q, q)
+    delta = attention_delta(o, o)
+    flash_backward_dq(q, q, q, o, lse, delta, True)
+    flash_backward_dkv(q, q, q, o, lse, delta, True)
+    for dev in ("cpu", "meta"):
+        qg = torch.rand(1, 256, 2, 64, device=dev, requires_grad=True)
+        out, lse = flash_attention_lse(qg, qg, qg, causal=True)
+        (out.sum() + lse.sum()).backward()
+        assert qg.grad.device.type == dev
     assert [c.value for c in counts] == before
 
 
