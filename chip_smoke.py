@@ -19,15 +19,19 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    256x384 @ 384x128, 4096^3 and one full chunk (TF32 off for the plain
    version); the flash-attention forward (K3), ``out`` and ``lse``, at
    the LM's scoring shape [4, 2048, 32, 128] in bf16 and f32, causal and
-   full, at [2, 256, 2, 64] and cross-length 128 x 256 (out within the
-   dtype's tolerance, 2e-5 in f32 and 2e-2 in bf16; lse within 2e-5).
-   The flash-attention backward kernels, K4 (dQ) and K5 (dK/dV), against
-   their plain versions at the training shape in bf16 and f32, causal
-   and full, at [2, 256, 2, 64], cross-length 128 x 256 both ways, and
-   with a nonzero LSE cotangent (entry by entry 2e-4 in f32 and 5e-2 in
-   bf16, and each 64-row tile's norm-wise relative error within 1e-5 in
-   f32 and 1e-2 in bf16: ``BWD_TILE_REL``). Times from
-   CUDA events; ``torch.matmul`` in bf16, ``scaled_dot_product_attention``
+   full, at [2, 256, 2, 64] and cross-length 128 x 256 both ways (out
+   within the dtype's tolerance, 2e-5 in f32 and 2e-2 in bf16, and each
+   64-row tile's norm-wise relative error within ``K3_TILE_REL``; lse
+   within 2e-5). The flash-attention backward kernels, K4 (dQ) and K5
+   (dK/dV), against their plain versions at the training shape in bf16
+   and f32, causal and full, at [2, 256, 2, 64], cross-length 128 x 256
+   both ways, and with a nonzero LSE cotangent (entry by entry 2e-4 in
+   f32 and 5e-2 in bf16, and tile by tile within ``BWD_TILE_REL``). At
+   the main shapes a zeroed output and one with tiles skipped must fail
+   the tile checks. Each case names the route it took
+   (``kernel_route``): bf16 K3 and K5 run the wgmma + TMA kernels, f32
+   the CUDA-core ones, K4 the CUDA-core one always. Times from CUDA
+   events; ``torch.matmul`` in bf16, ``scaled_dot_product_attention``
    and its backward are timed as the library yardsticks.
 4. The main path, once per burner kind (matmul through the tile kernel
    with ``TPUSHARE_PALLAS_MATMUL=1``, then add through the mix kernel):
@@ -50,7 +54,8 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    tokens at batch 16 against the donated KV cache. Every co-located
    scoring checksum and decoded token must equal the solo run's, both
    tenants must be dropped at least twice and evict and prefetch, and K3
-   must have launched 32 times a request.
+   must have launched 32 times a request, every time by the wgmma
+   route.
 6. LM training at the same widths, 24 of 32 layers, every block
    recomputed in the backward (``TRAIN`` below): a full-width check of
    one step (K4 and K5 against the plain backward on every layer's own
@@ -64,7 +69,7 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    co-located loss and the final checksum of parameters and momentum
    must equal the solo run's, both tenants must be dropped at least
    twice, and K3, K4 and K5 must have launched 2 x 24, 24 and 24 times a
-   step.
+   step, K3 and K5 every time by the wgmma route.
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +116,11 @@ from nvshare_tpu_torch.models.transformer import (  # noqa: E402
     transformer_forward,
 )
 from nvshare_tpu_torch.ops import _build  # noqa: E402
+from nvshare_tpu_torch.ops.attention import (  # noqa: E402
+    CUDA_CORE,
+    WGMMA,
+    kernel_route,
+)
 from nvshare_tpu_torch.ops import (  # noqa: E402
     attention_delta,
     flash_attention,
@@ -326,13 +336,35 @@ def check_matmul(gen) -> dict:
     return entry
 
 
+def reset_counts(*wrappers) -> None:
+    """Zero each kernel wrapper's launch count and its per-route counts."""
+    for fn in wrappers:
+        fn.launches.reset()
+        for count in getattr(fn, "route_launches", {}).values():
+            count.reset()
+
+
+def tile_controls(got, want, limit: float) -> None:
+    """The negative control of a tile check: a zeroed output, and one whose
+    tiles past the fourth are skipped, must fail it."""
+    skipped = got.clone()
+    skipped[:, 4 * TILE_ROWS:] = 0
+    if min(tile_rel_err(torch.zeros_like(got), want),
+           tile_rel_err(skipped, want)) <= limit:
+        raise AssertionError("the tile check passes a zeroed or "
+                             "tile-skipping output")
+
+
 def check_attention(gen) -> dict:
     """flash_attention_lse against its plain version, ``out`` and ``lse``.
     Tolerances: the dtype's for ``out`` (f32 rtol = atol = 2e-5, bf16
-    2e-2, as the JAX kernel tests hold it); the f32 one for ``lse``, which
-    is f32 whatever the inputs. The main path's shape (the scoring
-    forward's, bf16, causal) is timed against the plain version and
-    PyTorch's ``scaled_dot_product_attention``, the library yardstick."""
+    2e-2, as the JAX kernel tests hold it) and, tile by tile,
+    K3_TILE_REL; the f32 one for ``lse``, which is f32 whatever the
+    inputs. Each case must launch K3 once by the route ``kernel_route``
+    names. The main path's shape (the scoring forward's, bf16, causal)
+    shows that a zeroed and a tile-skipping output fail the tile check,
+    and is timed against the plain version and PyTorch's
+    ``scaled_dot_product_attention``, the library yardstick."""
     import torch.nn.functional as F
 
     entry = None
@@ -342,21 +374,34 @@ def check_attention(gen) -> dict:
     cases = [main, main[:6] + (False,)]
     cases += [(SCORE_BATCH, LM.seq, LM.seq, LM.heads, LM.head_dim,
                torch.float32, c) for c in (True, False)]
-    cases += [(2, 256, 256, 2, 64, dt, c)
+    cases += [(2, sq, sk, 2, 64, dt, c)
+              for sq, sk in ((256, 256), (128, 256), (256, 128))
               for dt in (torch.float32, torch.bfloat16) for c in (True,
                                                                   False)]
-    cases += [(2, 128, 256, 2, 64, torch.float32, c) for c in (True, False)]
     for b, sq, sk, h, d, dtype, causal in cases:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .mul_(0.5).to(dtype) for s in (sq, sk, sk))
+        route = kernel_route(q, k)
+        count = flash_attention.route_launches[route]
+        before = count.value
         got, got_lse = flash_attention_lse(q, k, v, causal=causal)
+        launched = count.value - before
         want, want_lse = flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         tol = 2e-5 if dtype == torch.float32 else 2e-2
+        rel_tol = K3_TILE_REL[dtype]
         err = (got.float() - want.float()).abs().max().item()
         lse_err = (got_lse - want_lse).abs().max().item()
+        rel = tile_rel_err(got, want)
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         torch.testing.assert_close(got_lse, want_lse, rtol=2e-5, atol=2e-5)
+        if launched != 1 or rel > rel_tol:
+            raise AssertionError(
+                f"K3 {dtype} [{b},{sq},{h},{d}] sk {sk} causal {causal}: "
+                f"{launched} launches by the {route} route, tile-wise "
+                f"relative error {rel} (limit {rel_tol})")
+        if (b, sq, sk, h, d, dtype, causal) == main:
+            tile_controls(got, want, rel_tol)
         del got, got_lse, want, want_lse
         ms = cuda_ms(lambda: flash_attention_lse(q, k, v, causal=causal), 10)
         plain_ms = cuda_ms(
@@ -369,8 +414,9 @@ def check_attention(gen) -> dict:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         line = (f"K3 flash_attention {str(dtype)[6:]} [{b},{sq},{h},{d}] "
-                f"sk {sk} {'causal' if causal else 'full'}: max abs err out "
-                f"{err:.3g}, lse {lse_err:.3g}; {ms:.3f} ms "
+                f"sk {sk} {'causal' if causal else 'full'} ({route}): max "
+                f"abs err out {err:.3g}, lse {lse_err:.3g}, tile-wise "
+                f"relative error {rel:.3g}; {ms:.3f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
                 f"bound {bound_ms:.3f} ms")
         if (b, sq, sk, h, d, dtype, causal) == main:
@@ -378,8 +424,8 @@ def check_attention(gen) -> dict:
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), 10)
             line += f", scaled_dot_product_attention {lib_ms:.3f} ms"
-            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
+            entry = {"design": route, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes",
                      "library_ms": lib_ms}
@@ -414,13 +460,20 @@ def tile_rel_err(got, want) -> float:
     return (diff / ref.clamp(min=floor)).max().item()
 
 
-# The tight limit on tile_rel_err for K4 and K5 against their plain
-# versions. bf16: both sides compute in f32 and round to bf16, so an entry
-# differs by at most one bf16 ulp, which is at most 2**-7 = 7.8e-3 of it;
-# 1e-2 holds that with room, and a zeroed or skipped tile (1.0) fails it
-# by two orders of magnitude. f32: only the summation order differs.
-# Readings on an H100 (PERF.md): at most 2.5e-4 in bf16 (6.7e-4 in the
-# training step's layers) and 1.7e-7 in f32.
+# The tight limits on tile_rel_err for K3 and for K4 and K5 against their
+# plain versions, which compute in f32 and round only their outputs.
+# f32 (the CUDA-core kernels): only the summation order differs (at most
+# 1.3e-6 read for K3 and 1.6e-7 for K4/K5 on an H100, PERF.md). bf16: K4
+# computes in f32 too, so its entries differ by at most one bf16 ulp of
+# the output (at most 8e-4 read). The wgmma K3 and K5 also round their
+# probabilities (K3's P, K5's P^T) and K5's dS^T to bf16 before the
+# products that take them, where the plain versions keep f32: a relative
+# rounding of at most 2**-9 = 2.0e-3 an entry, averaged over each sum, on
+# top of the output's own rounding to bf16 (2.6e-3 to 3.6e-3 read for
+# both at every check shape and layer, PERF.md). 1e-2 holds these with
+# room, and a zeroed or skipped tile (1.0) fails it by two orders of
+# magnitude.
+K3_TILE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 BWD_TILE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -429,12 +482,13 @@ def check_attention_backward(gen) -> tuple:
     their plain versions on the same inputs (q, k, v, dO, and o and LSE
     from K3), held two ways: entry by entry at the JAX kernel tests'
     rtol = atol (2e-4 in f32, 5e-2 in bf16), and tile by tile to
-    BWD_TILE_REL, which scales with the gradients. At the training shape
-    it also shows that a zeroed output, and one whose tiles past the
-    fourth are skipped, fail the tile check. The training shape (bf16,
-    causal) is timed against the plain versions and against the backward
-    of PyTorch's ``scaled_dot_product_attention``, which gives dQ, dK and
-    dV together (the library yardstick of both rows)."""
+    BWD_TILE_REL, which scales with the gradients. Each case must launch
+    K5 once by the route ``kernel_route`` names (K4 has one route). At the
+    training shape it also shows that a zeroed output, and one whose
+    tiles past the fourth are skipped, fail the tile check. The training
+    shape (bf16, causal) is timed against the plain versions and against
+    the backward of PyTorch's ``scaled_dot_product_attention``, which
+    gives dQ, dK and dV together (the library yardstick of both rows)."""
     import torch.nn.functional as F
 
     entries = {}
@@ -446,9 +500,11 @@ def check_attention_backward(gen) -> tuple:
     cases += [main[:5] + (torch.float32, c, False) for c in (True, False)]
     cases += [(2, 256, 256, 2, 64, dt, c, False)
               for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
-    cases += [(2, sq, sk, 2, 64, torch.float32, c, False)
-              for sq, sk in ((128, 256), (256, 128)) for c in (True, False)]
-    cases += [(2, 256, 256, 2, 64, torch.float32, True, True)]
+    cases += [(2, sq, sk, 2, 64, dt, c, False)
+              for sq, sk in ((128, 256), (256, 128))
+              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [(2, 256, 256, 2, 64, dt, True, True)
+              for dt in (torch.float32, torch.bfloat16)]
     for b, sq, sk, h, d, dtype, causal, with_glse in cases:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .mul_(0.5).to(dtype) for s in (sq, sk, sk))
@@ -459,7 +515,11 @@ def check_attention_backward(gen) -> tuple:
         g_lse = (torch.randn((b * h, sq), generator=gen, device="cuda")
                  .mul_(0.5) if with_glse else None)
         args = (q, k, v, do, lse, delta, causal, g_lse)
+        route = kernel_route(q, k)
+        count = flash_backward_dkv.route_launches[route]
+        before = count.value
         got = (flash_backward_dq(*args), *flash_backward_dkv(*args))
+        launched = count.value - before
         want = flash_backward_reference(*args)
         torch.cuda.synchronize()
         tol = 2e-4 if dtype == torch.float32 else 5e-2
@@ -468,21 +528,16 @@ def check_attention_backward(gen) -> tuple:
                 for g, w in zip(got, want)]
         rels = [tile_rel_err(g, w) for g, w in zip(got, want)]
         worst = max(_excess(g, w, tol) for g, w in zip(got, want))
-        if worst > 0 or max(rels) > rel_tol:
+        if worst > 0 or max(rels) > rel_tol or launched != 1:
             raise AssertionError(
                 f"flash backward {dtype} [{b},{sq},{h},{d}] sk {sk} causal "
                 f"{causal} g_lse {with_glse}: max abs err dq/dk/dv {errs} "
                 f"(rtol = atol = {tol}), tile-wise relative error {rels} "
-                f"(limit {rel_tol})")
+                f"(limit {rel_tol}), K5 launched {launched} times by the "
+                f"{route} route")
         if (b, sq, sk, h, d, dtype, causal, with_glse) == main:
             for g, w in zip(got, want):
-                skipped = g.clone()
-                skipped[:, 4 * TILE_ROWS:] = 0
-                if min(tile_rel_err(torch.zeros_like(g), w),
-                       tile_rel_err(skipped, w)) <= rel_tol:
-                    raise AssertionError("the tile check passes a zeroed or "
-                                         "tile-skipping output")
-                del skipped
+                tile_controls(g, w, rel_tol)
         del got, want
         flops = 2.0 * b * h * sq * sk * d / (2.0 if causal else 1.0)
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
@@ -490,8 +545,8 @@ def check_attention_backward(gen) -> tuple:
         rows = b * h * sq * 4 * (3 if with_glse else 2)
         line = (f"flash backward {str(dtype)[6:]} [{b},{sq},{h},{d}] sk {sk} "
                 f"{'causal' if causal else 'full'}"
-                f"{' g_lse' if with_glse else ''}: max abs err dq "
-                f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; "
+                f"{' g_lse' if with_glse else ''} (K5 {route}): max abs err "
+                f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; "
                 f"tile-wise relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}"
                 f", dv {rels[2]:.3g}")
         timed = {}
@@ -505,6 +560,7 @@ def check_attention_backward(gen) -> tuple:
             bytes_ms = (io + rows + b * out_rows * h * d * q.element_size()) \
                 / HBM_BYTES_PER_S * 1e3
             timed[name] = dict(
+                design=CUDA_CORE if name == "K4" else route,
                 max_abs_err=max(errs[:1] if name == "K4" else errs[1:]),
                 ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -880,7 +936,27 @@ def size_lm_pair(physical: int) -> dict:
 # bf16, which re-rounds every layer's activations, so a difference in f32
 # summation order inside one op spreads to more logits with each layer
 # (PERF.md). The argmax must agree at more than 0.95 of the positions.
+# The wgmma K3 also rounds P to bf16; check_lm_inference reads what that
+# rounding alone does to the logits (attention_p_bf16) beside K3's share.
 LOGITS_OUTSIDE = 0.05
+
+
+def attention_p_bf16(q, k, v, causal: bool):
+    """Check-only: the plain forward with its probabilities rounded to
+    bf16 before P v, where the wgmma K3 rounds them (the row sums from
+    the unrounded P, as the kernel takes them). Everything else as in
+    flash_attention_reference, in f32."""
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        keep = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    rows = p.sum(dim=-1, keepdim=True).permute(0, 2, 1, 3)  # [B, Sq, H, 1]
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(),
+                       v.float())
+    return (out / rows).to(q.dtype)
 
 
 def logits_agreement(got, want):
@@ -901,7 +977,9 @@ def check_lm_inference(budget: int) -> dict:
     against the same forward through the plain attention; teacher-forced
     decode_step logits for the first CHECK_DECODE positions against the
     K3 forward's (argmax agreement > 0.95, at most LOGITS_OUTSIDE of the
-    logits outside 2e-2)."""
+    logits outside 2e-2). Beside them, a reading with no limit: the
+    forward through attention_p_bf16 against the plain one, the spread
+    that rounding P to bf16 alone gives."""
     out = {}
     layers = []  # per layer: [out max abs error, its excess over 2e-2,
     #                             LSE max abs error]
@@ -926,12 +1004,13 @@ def check_lm_inference(budget: int) -> dict:
         tokens = a.array(toks)
         forward = vmem.vop(transformer_forward, static_argnums=(1, 3))
         compare = vmem.vop(logits_agreement)
-        flash_attention.launches.reset()
+        reset_counts(flash_attention)
         t0 = time.perf_counter()
         logits = forward(params, LM, tokens, None)
         a.fence()
         out["forward_s"] = time.perf_counter() - t0
         out["launches"] = flash_attention.launches.value
+        out["wgmma_launches"] = flash_attention.route_launches[WGMMA].value
         checked_logits = forward(params, LM, tokens, local_attn(LM, checked))
         out["layers"] = torch.stack(layers).cpu().tolist()
         out["same_logits"] = int(vmem.vop(lambda x, y: (x != y).sum())(
@@ -942,6 +1021,10 @@ def check_lm_inference(budget: int) -> dict:
         a.fence()
         out["plain_forward_s"] = time.perf_counter() - t0
         out["forward"] = compare(logits, ref).numpy().tolist()
+        rounded = forward(params, LM, tokens,
+                          local_attn(LM, attention_p_bf16))
+        out["forward_p_bf16"] = compare(rounded, ref).numpy().tolist()
+        rounded.delete()
         ref.delete()
         cache = vmem.vop(lambda dev: init_kv_cache(
             LM, SCORE_BATCH, LM.seq, device=dev))(a.device)
@@ -977,13 +1060,13 @@ def check_lm_inference(budget: int) -> dict:
         f"abs err {lse_err:.3g}; checked forward "
         f"logits {'equal' if out['same_logits'] else 'DIFFER from'} the "
         "K3 forward's")
-    for what in ("forward", "decode"):
+    for what, against in (("forward", "plain-attention forward"),
+                          ("forward_p_bf16", "plain-attention forward"),
+                          ("decode", "K3 forward")):
         err, outside, rel, agree = out[what]
-        log(f"[lm] {what} vs "
-            f"{'plain-attention forward' if what == 'forward' else 'K3 forward'}"
-            f": max abs err {err:.4g}, share outside rtol/atol 2e-2 "
-            f"{outside:.4g}, norm-wise relative error {rel:.3g}, argmax "
-            f"agreement {agree:.4f}")
+        log(f"[lm] {what} vs {against}: max abs err {err:.4g}, share "
+            f"outside rtol/atol 2e-2 {outside:.4g}, norm-wise relative "
+            f"error {rel:.3g}, argmax agreement {agree:.4f}")
     if worst > 0 or lse_err > 2e-5 or not out["same_logits"] \
             or len(out["layers"]) != LM.depth:
         raise AssertionError(f"K3 at the LM's layers: {out['layers']}")
@@ -991,9 +1074,10 @@ def check_lm_inference(budget: int) -> dict:
         _, outside, _, agree = out[what]
         if outside > LOGITS_OUTSIDE or agree <= 0.95:
             raise AssertionError(f"LM {what} check failed: {out[what]}")
-    if out["launches"] != LM.depth:
+    if out["launches"] != LM.depth or out["wgmma_launches"] != LM.depth:
         raise AssertionError(f"the forward launched K3 {out['launches']} "
-                             f"times, not {LM.depth}")
+                             f"times, {out['wgmma_launches']} by the wgmma "
+                             f"route, not {LM.depth}")
     log(f"[lm] forward [{SCORE_BATCH},{LM.seq}] {out['forward_s']:.3f} s "
         f"(plain attention {out['plain_forward_s']:.3f} s), {LM.depth} K3 "
         f"launches; teacher-forced decode batch {SCORE_BATCH} "
@@ -1072,9 +1156,10 @@ def lm_phases(phases: Phases, budget: int, physical: int,
     log(f"[lm] handoff cycle {probe['cycle_s']:.3f} s "
         f"({sizes['wss_bytes'] / GiB:.2f} GiB out and back) -> TQ {tq} s; "
         f"request {probe['request_s']:.3f} s -> {requests} requests")
-    flash_attention.launches.reset()
+    reset_counts(flash_attention)
     res = phases.run("main path lm", run_lm, budget, sched, requests, tq)
     launches = flash_attention.launches.value
+    res["wgmma_launches"] = flash_attention.route_launches[WGMMA].value
     want = LM.depth * 3 * requests  # solo + two co-located tenants
     if launches != want:
         raise AssertionError(f"K3 launched {launches} times on the LM main "
@@ -1129,10 +1214,8 @@ def check_lm_training() -> dict:
     params = TRAIN.init(TRAIN_SEED, device="cuda")
     tokens = torch.from_numpy(synthetic_tokens(
         TRAIN, TRAIN_BATCH, TRAIN_SEED + 1)).cuda()
-    counts = (flash_attention.launches, flash_backward_dq.launches,
-              flash_backward_dkv.launches)
-    for c in counts:
-        c.reset()
+    wrappers = (flash_attention, flash_backward_dq, flash_backward_dkv)
+    reset_counts(*wrappers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1141,7 +1224,9 @@ def check_lm_training() -> dict:
     torch.cuda.synchronize()
     out["step_s"] = time.perf_counter() - t0
     out["transient_bytes"] = torch.cuda.max_memory_allocated() - base
-    out["launches"] = [c.value for c in counts]
+    out["launches"] = [fn.launches.value for fn in wrappers]
+    out["wgmma_launches"] = [fn.route_launches[WGMMA].value
+                             for fn in (flash_attention, flash_backward_dkv)]
     out["loss"] = loss.item()
     kernel_grads = {k: g.cpu() for k, g in grads.items()}
     del grads
@@ -1208,9 +1293,12 @@ def check_lm_training() -> dict:
         " norm-wise")
     if max(err) > rel_tol or len(out["layers"]) != L:
         raise AssertionError(f"K4/K5 at the LM's layers: {out['layers']}")
-    if out["launches"] != [2 * L, L, L]:
+    if out["launches"] != [2 * L, L, L] or \
+            out["wgmma_launches"] != [2 * L, L]:
         raise AssertionError(f"one step launched K3/K4/K5 "
-                             f"{out['launches']}, not {[2 * L, L, L]}")
+                             f"{out['launches']}, not {[2 * L, L, L]} (K3 "
+                             f"and K5 by the wgmma route: "
+                             f"{out['wgmma_launches']})")
     if loss_rel > 1e-3 or grad_err[worst_grad] > GRAD_REL:
         raise AssertionError(f"the kernel step vs the plain step: loss "
                              f"relative {loss_rel}, gradients {grad_err}")
@@ -1326,12 +1414,12 @@ def train_phases(phases: Phases, budget: int, physical: int,
     log(f"[train] handoff cycle {probe['cycle_s']:.3f} s "
         f"({sizes['wss_bytes'] / GiB:.2f} GiB out and back) -> TQ {tq} s; "
         f"step {probe['step_s']:.3f} s -> {steps} steps")
-    counts = (flash_attention.launches, flash_backward_dq.launches,
-              flash_backward_dkv.launches)
-    for c in counts:
-        c.reset()
+    wrappers = (flash_attention, flash_backward_dq, flash_backward_dkv)
+    reset_counts(*wrappers)
     res = phases.run("main path train", run_train, budget, sched, steps, tq)
-    launches = [c.value for c in counts]
+    launches = [fn.launches.value for fn in wrappers]
+    res["wgmma_launches"] = [fn.route_launches[WGMMA].value
+                             for fn in (flash_attention, flash_backward_dkv)]
     runs = 3 * steps  # solo + two co-located tenants
     want = [2 * TRAIN.depth * runs, TRAIN.depth * runs, TRAIN.depth * runs]
     if launches != want:
@@ -1408,10 +1496,16 @@ def main() -> int:
         raise AssertionError(f"kernel launches on the main path: matmul "
                              f"{mm_launches}, mix {mix_launches}")
     k3_launches, k4_launches, k5_launches = train["launches"]
+    k3_wgmma = lm["wgmma_launches"] + train["wgmma_launches"][0]
+    k5_wgmma = train["wgmma_launches"][1]
     log(f"main-path launches: tiled_matmul {mm_launches}, fused_mix "
         f"{mix_launches}, flash_attention {lm['launches']} (serving) + "
-        f"{k3_launches} (training), flash_backward_dq {k4_launches}, "
-        f"flash_backward_dkv {k5_launches}")
+        f"{k3_launches} (training), {k3_wgmma} of them by the wgmma route, "
+        f"flash_backward_dq {k4_launches}, flash_backward_dkv {k5_launches}"
+        f", {k5_wgmma} by the wgmma route")
+    if k3_wgmma != lm["launches"] + k3_launches or k5_wgmma != k5_launches:
+        raise AssertionError("a main-path launch of K3 or K5 did not take "
+                             "the wgmma route")
     log("phase seconds: " + json.dumps(phases.seconds))
     log("measurements: " + json.dumps({
         "card": card,
@@ -1438,16 +1532,18 @@ def main() -> int:
             "peak_bytes")},
         "train_check": train["check"]}))
     kernels = [
-        dict(name="fused_mix", route="cuda",
+        # K1 runs on the CUDA cores; K2 takes bf16 tensor-core fragments
+        # through nvcuda::wmma (mma.sync), neither cuda-core nor wgmma.
+        dict(name="fused_mix", route="cuda", design=CUDA_CORE,
              source="nvshare_tpu_torch/csrc/mix.cu",
              replaces="nvshare_tpu/ops/mix.py:42", launches=mix_launches,
              **mix_entry),
-        dict(name="tiled_matmul", route="cuda",
+        dict(name="tiled_matmul", route="cuda", design="wmma",
              source="nvshare_tpu_torch/csrc/matmul.cu",
              replaces="nvshare_tpu/ops/matmul.py:58", launches=mm_launches,
              **mm_entry),
         dict(name="flash_attention", route="cuda",
-             source="nvshare_tpu_torch/csrc/attention.cu",
+             source="nvshare_tpu_torch/csrc/attention_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:120",
              launches=lm["launches"] + k3_launches, **att_entry),
         dict(name="flash_backward_dq", route="cuda",
@@ -1455,7 +1551,7 @@ def main() -> int:
              replaces="nvshare_tpu/ops/attention.py:267",
              launches=k4_launches, **dq_entry),
         dict(name="flash_backward_dkv", route="cuda",
-             source="nvshare_tpu_torch/csrc/attention_bwd.cu",
+             source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:286",
              launches=k5_launches, **dkv_entry),
     ]

@@ -25,7 +25,7 @@ layers, remat on, 4 x 2048 tokens a step), measures without the arena one
 ``lm_train_step`` (host clock, synchronized), its pass on meta tensors
 (what ``vop`` runs once to size its outputs) and a profiler breakdown of
 one step: device time, host time, the device's idle share of the step,
-and the kernels with the most device time (K3, K4 and K5 among them).
+the kernels with the most device time, and K3's, K4's and K5's.
 
 Prints one line per measurement and, last, the card's name and power limit
 and one JSON object of all of them.
@@ -79,9 +79,9 @@ def wall_ms(fn, reps: int) -> float:
 
 
 def breakdown(fn, reps: int, top: int = 6) -> dict:
-    """Device and host milliseconds per call from ``torch.profiler``, and
-    the ops and the kernels with the most device time (the flash kernel
-    is launched through ctypes, so it shows as a kernel, not an op)."""
+    """Device and host milliseconds per call from ``torch.profiler``, the
+    ops and the kernels with the most device time, and every flash
+    kernel's (launched through ctypes, they show as kernels, not ops)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -104,7 +104,11 @@ def breakdown(fn, reps: int, top: int = 6) -> dict:
                                   for e in ops},
             "top_kernels_device_ms": {
                 e.key[:60]: e.self_device_time_total / 1e3 / reps
-                for e in kernels}}
+                for e in kernels},
+            "flash_kernels_device_ms": {
+                e.key[:60]: e.self_device_time_total / 1e3 / reps
+                for e in events if e.device_type == DeviceType.CUDA
+                and "flash_" in e.key}}
 
 
 def train_probe(out: dict) -> None:
@@ -186,7 +190,7 @@ def main() -> int:
         return 2
     parts = sys.argv[1:] or ["infer", "train"]
     card = card_line()
-    _build.build(["attention", "attention_bwd"])
+    _build.build([n for n in _build.SOURCES if n.startswith("attention")])
     out = {"card": card}
     if "train" in parts:
         train_probe(out)

@@ -10,10 +10,11 @@
 //
 // Bound: operations. At the language model's scoring shape (B=4, S=2048,
 // H=32, D=128, causal) the function does 4*B*H*S*S*D/2 = 1.37e11 flops
-// against 0.27 GB of q, k, v, o and lse. Like the Pallas kernel, this
-// version upcasts q, k and v to f32 and does all of its math in f32 on the
-// CUDA cores (a wgmma design in bf16 is later work), so its own ceiling is
-// the card's f32 rate, not the tensor cores'.
+// against 0.27 GB of q, k, v, o and lse. This is the f32 route, and that of
+// bf16 at head widths other than 64 and 128 (bf16 at 64 or 128 takes the
+// wgmma kernel in attention_sm90.cu): like the Pallas kernel it upcasts q,
+// k and v to f32 and does all of its math in f32 on the CUDA cores, so its
+// own ceiling is the card's f32 rate, not the tensor cores'.
 //
 // Design. One block of 256 threads owns one (batch, head, 64-row query
 // tile); a loop over 64-key tiles inside the block takes the place of the

@@ -4,9 +4,10 @@ Each source in ``nvshare_tpu_torch/csrc/`` has a plain C interface and is
 compiled by one ``nvcc`` call into its own shared library for ``sm_90a``,
 then loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
 seconds, not minutes). Libraries land in ``build/torch_ext/`` at the repo
-root, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
-``nvcc`` per source at once and waits for all of them.
+root, named by a hash of the source, every header in ``csrc/`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. :func:`build` starts one ``nvcc`` per source at once and
+waits for all of them.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -27,9 +28,13 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = {"mix": "mix.cu", "matmul": "matmul.cu",
-           "attention": "attention.cu", "attention_bwd": "attention_bwd.cu"}
+           "attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
+           "attention_sm90": "attention_sm90.cu",
+           "attention_bwd_sm90": "attention_bwd_sm90.cu"}
+# -ldl: the wgmma kernels take the tensor-map encoder from the libcuda
+# that PyTorch has loaded (csrc/sm90.cuh).
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-ldl")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -72,9 +77,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+    key = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES),
@@ -97,7 +104,8 @@ def build(names: Iterable[str] = tuple(SOURCES),
             results[name] = {"path": str(out), "seconds": 0.0, "log": ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc(), "-o", str(tmp), str(CSRC / SOURCES[name]),
+               *NVCC_FLAGS]
         if ptxas_verbose:
             cmd.insert(1, "-Xptxas=-v")
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -132,29 +140,37 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _bind(name: str, lib: ctypes.CDLL) -> None:
+def _bind(name: str, lib) -> None:
+    """Set the argument and result types of ``name``'s entry points on
+    ``lib`` (a loaded library, or any object whose attributes take
+    ``argtypes`` and ``restype``). A pointer bound as an int would be cut
+    to 32 bits, so these must match the C signatures exactly."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     if name == "mix":
-        fn = lib.tpushare_fused_mix
-        fn.argtypes = [p, p, p, ctypes.c_longlong, i, f, f, f, p]
+        entries = {"tpushare_fused_mix": [p, p, p, ll, i, f, f, f, p]}
     elif name == "matmul":
-        fn = lib.tpushare_tiled_matmul
-        fn.argtypes = [p, p, p, i, i, i, i, i, p]
-    elif name == "attention":
-        fn = lib.tpushare_flash_forward
-        ll = ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, *([ll] * 9), i, i, f, p]
+        entries = {"tpushare_tiled_matmul": [p, p, p, i, i, i, i, i, p]}
+    elif name in ("attention", "attention_sm90"):
+        # Both routes of K3 take the same arguments.
+        suffix = name[len("attention"):]
+        entries = {f"tpushare_flash_forward{suffix}":
+                   [p, p, p, p, p, *([i] * 5), *([ll] * 9), i, i, f, p]}
     elif name == "attention_bwd":
-        ll = ctypes.c_longlong
-        for fn, outs in ((lib.tpushare_flash_backward_dq, 1),
-                         (lib.tpushare_flash_backward_dkv, 2)):
-            fn.argtypes = [*([p] * (7 + outs)), i, i, i, i, i,
-                           *([ll] * 12), i, i, f, p]
-            fn.restype = ctypes.c_int
-        return
+        entries = {f"tpushare_flash_backward_{which}":
+                   [*([p] * (7 + outs)), *([i] * 5), *([ll] * 12), i, i, f,
+                    p]
+                   for which, outs in (("dq", 1), ("dkv", 2))}
+    elif name == "attention_bwd_sm90":
+        # The arguments of attention_bwd's dK/dV entry.
+        entries = {"tpushare_flash_backward_dkv_sm90":
+                   [*([p] * 9), *([i] * 5), *([ll] * 12), i, i, f, p]}
     else:
         raise KeyError(name)
-    fn.restype = ctypes.c_int
+    for entry, argtypes in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
 def check(rc: int, what: str) -> None:

@@ -1,25 +1,38 @@
 """Flash attention, forward and backward, over [B, S, H, D] inputs.
 
-The port of ``nvshare_tpu/ops/attention.py``. On CUDA tensors
-:func:`flash_attention` and :func:`flash_attention_lse` launch the
-hand-written forward kernel (K3, ``csrc/attention.cu``), which reads q, k
-and v strided as they lie (no transposes) and computes in f32 with an
-online softmax over key tiles; on CPU or meta tensors they run
-:func:`flash_attention_reference`, the plain version. The reference's
-eligibility rule is kept: ``seq % 128 == 0`` and ``d <= 128`` take the
-kernel, anything else takes :func:`reference_attention` on any device, as
-the JAX wrapper does.
+The port of ``nvshare_tpu/ops/attention.py``. The reference's eligibility
+rule is kept: ``seq % 128 == 0`` and ``d <= 128`` take a kernel, anything
+else takes :func:`reference_attention` on any device, as the JAX wrapper
+does. Among eligible shapes, :func:`kernel_route` chooses by declared dtype
+and width, never by trying one and falling back:
 
-Both run inside a :class:`torch.autograd.Function`. Its backward saves
-q, k, v, the output and the LSE, and recomputes the probabilities from
-the LSE in two kernels (``csrc/attention_bwd.cu``): the dQ sweep
-:func:`flash_backward_dq` (K4) and the dK/dV sweep
-:func:`flash_backward_dkv` (K5), one writer per output tile, no atomics.
-The LSE output's cotangent folds into dS, so :func:`flash_attention_lse`
-is differentiable in both outputs. On CPU or meta tensors the wrappers run
-their plain versions (together, :func:`flash_backward_reference`); the
-ragged route differentiates :func:`reference_attention`, as the JAX
-package does.
+- ``"wgmma+tma"``: bf16 with ``d`` in {64, 128}. The forward (K3,
+  ``csrc/attention_sm90.cu``) and the dK/dV sweep (K5,
+  ``csrc/attention_bwd_sm90.cu``) are Hopper tensor-core kernels: TMA
+  loads into a ring of shared-memory stages, ``wgmma`` products of bf16
+  into f32. They round the probabilities P (and, in K5, dS) to bf16
+  before their products, where the plain versions stay in f32.
+- ``"cuda-core"``: f32, and bf16 of any other ``d <= 128``. The forward
+  (``csrc/attention.cu``) and K5 (``csrc/attention_bwd.cu``) compute in
+  f32 on the CUDA cores, as the Pallas kernels do, and match the f32
+  plain versions to summation order.
+
+q, k and v are read strided as they lie (a view into a fused qkv
+projection needs no copy). On CPU or meta tensors the wrappers run
+:func:`flash_attention_reference`, the plain version, whatever the route.
+Each wrapper counts its launches in ``.launches`` and, per route, in
+``.route_launches``.
+
+Both entry points run inside a :class:`torch.autograd.Function`. Its
+backward saves q, k, v, the output and the LSE, and recomputes the
+probabilities from the LSE in two kernels: the dQ sweep
+:func:`flash_backward_dq` (K4, CUDA cores on either route) and the dK/dV
+sweep :func:`flash_backward_dkv` (K5, by the route above), one writer per
+output tile, no atomics. The LSE output's cotangent folds into dS, so
+:func:`flash_attention_lse` is differentiable in both outputs. On CPU or
+meta tensors the wrappers run their plain versions (together,
+:func:`flash_backward_reference`); the ragged route differentiates
+:func:`reference_attention`, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -128,9 +141,52 @@ def _kernel_shapes_ok(sq: int, sk: int, d: int) -> bool:
     return not (sq % _BQ or sk % _BK or d > 128)
 
 
+WGMMA = "wgmma+tma"
+CUDA_CORE = "cuda-core"
+REFERENCE = "reference"
+
+
+def kernel_route(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The route of flash attention (K3, and K5 in the backward) for q
+    [B,Sq,H,D] and k [B,Sk,H,D], by declared shape and dtype: REFERENCE
+    for ragged or oversized shapes, WGMMA for bf16 with d in {64, 128},
+    CUDA_CORE for every other eligible shape (f32, or bf16 of another
+    width). On a CPU or meta tensor it names the route a CUDA tensor of
+    the same shape and dtype takes."""
+    d = q.shape[-1]
+    if not _kernel_shapes_ok(q.shape[1], k.shape[1], d):
+        return REFERENCE
+    if q.dtype == torch.bfloat16 and d in (64, 128):
+        return WGMMA
+    return CUDA_CORE
+
+
+def _route_counts() -> dict:
+    return {WGMMA: _build.LaunchCount(), CUDA_CORE: _build.LaunchCount()}
+
+
+def _strided(x: torch.Tensor) -> torch.Tensor:
+    """x as the CUDA-core kernels read it: rows and heads strided, the
+    head dimension contiguous."""
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """x as the wgmma kernels read it: TMA takes any strides that are
+    multiples of 16 bytes from a 16-byte-aligned base (the views of the
+    fused qkv projection are), so x is copied only where that fails."""
+    ok = x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+        st * x.element_size() % 16 == 0 for st in x.stride()[:-1])
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(*xs: torch.Tensor) -> list:
+    return [st for x in xs for st in x.stride()[:3]]
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the CUDA kernel (eligible shapes, CUDA tensors)."""
+    """Run K3 by its route (eligible shapes, CUDA tensors)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
@@ -142,23 +198,23 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash attention kernel takes q, k and v of one "
                         "dtype on one device")
     code = _build.dtype_code(q.dtype, "flash_attention")
-    # The kernel reads rows and heads strided; only the head dimension
-    # must be contiguous.
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    route = kernel_route(q, k)
+    if route == WGMMA:
+        fn = _build.load("attention_sm90").tpushare_flash_forward_sm90
+        q, k, v = (_tma_ready(x) for x in (q, k, v))
+    else:
+        fn = _build.load("attention").tpushare_flash_forward
+        q, k, v = (_strided(x) for x in (q, k, v))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.load("attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.tpushare_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, sq, sk, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            int(causal), code, 1.0 / math.sqrt(d), stream)
-    _build.check(rc, "flash_attention")
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), b, h, sq, sk, d, *_strides(q, k, v),
+                int(causal), code, 1.0 / math.sqrt(d), stream)
+    _build.check(rc, f"flash_attention ({route})")
     flash_attention.launches.add()
+    flash_attention.route_launches[route].add()
     return out, lse
 
 
@@ -194,31 +250,33 @@ def _launch_backward(which: str, q, k, v, do, lse, delta, g_lse,
         raise ValueError(f"lse, delta and g_lse must be float32 "
                          f"[{b * h}, {sq}]")
     code = _build.dtype_code(q.dtype, "flash backward")
-    q, k, v, do = (x if x.stride(-1) == 1 else x.contiguous()
-                   for x in (q, k, v, do))
+    # K4 takes the CUDA-core kernel on every route.
+    route = kernel_route(q, k) if which == "dkv" else CUDA_CORE
+    if route == WGMMA:
+        q, k, v, do = (_tma_ready(x) for x in (q, k, v, do))
+    else:
+        q, k, v, do = (_strided(x) for x in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     g_lse = None if g_lse is None else g_lse.contiguous()
-    lib = _build.load("attention_bwd")
-    strides = (q.stride(0), q.stride(1), q.stride(2),
-               k.stride(0), k.stride(1), k.stride(2),
-               v.stride(0), v.stride(1), v.stride(2),
-               do.stride(0), do.stride(1), do.stride(2))
     if which == "dq":
         outs = (torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device),)
-        fn = lib.tpushare_flash_backward_dq
+        fn = _build.load("attention_bwd").tpushare_flash_backward_dq
     else:
         outs = tuple(torch.empty((b, sk, h, d), dtype=q.dtype,
                                  device=q.device) for _ in range(2))
-        fn = lib.tpushare_flash_backward_dkv
+        fn = (_build.load("attention_bwd_sm90")
+              .tpushare_flash_backward_dkv_sm90 if route == WGMMA else
+              _build.load("attention_bwd").tpushare_flash_backward_dkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(),
                 None if g_lse is None else g_lse.data_ptr(),
-                *(o.data_ptr() for o in outs), b, h, sq, sk, d, *strides,
-                int(causal), code, 1.0 / math.sqrt(d), stream)
-    _build.check(rc, f"flash backward ({which})")
-    return outs
+                *(o.data_ptr() for o in outs), b, h, sq, sk, d,
+                *_strides(q, k, v, do), int(causal), code,
+                1.0 / math.sqrt(d), stream)
+    _build.check(rc, f"flash backward ({which}, {route})")
+    return outs, route
 
 
 def flash_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,7 +289,8 @@ def flash_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         return flash_backward_dq_reference(q, k, v, do, lse, delta, causal,
                                            g_lse)
-    (dq,) = _launch_backward("dq", q, k, v, do, lse, delta, g_lse, causal)
+    (dq,), _ = _launch_backward("dq", q, k, v, do, lse, delta, g_lse,
+                                causal)
     flash_backward_dq.launches.add()
     return dq
 
@@ -241,18 +300,22 @@ def flash_backward_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        delta: torch.Tensor, causal: bool = False,
                        g_lse: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) [B,Sk,H,D] in k's and v's types: K5 on a CUDA tensor, the
-    plain version on a CPU or meta tensor. Kernel-eligible shapes only."""
+    """(dK, dV) [B,Sk,H,D] in k's and v's types: K5 on a CUDA tensor, by
+    :func:`kernel_route`, the plain version on a CPU or meta tensor.
+    Kernel-eligible shapes only."""
     if q.device.type != "cuda":
         return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal,
                                             g_lse)
-    dk, dv = _launch_backward("dkv", q, k, v, do, lse, delta, g_lse, causal)
+    (dk, dv), route = _launch_backward("dkv", q, k, v, do, lse, delta,
+                                       g_lse, causal)
     flash_backward_dkv.launches.add()
+    flash_backward_dkv.route_launches[route].add()
     return dk, dv
 
 
 flash_backward_dq.launches = _build.LaunchCount()
 flash_backward_dkv.launches = _build.LaunchCount()
+flash_backward_dkv.route_launches = _route_counts()
 
 
 def _flash_backward(q, k, v, o, lse, g, causal: bool, g_lse=None):
@@ -295,8 +358,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Exact attention for [batch, seq, heads, dim] inputs.
 
-    Shapes with seq % 128 == 0 and dim <= 128 take the kernel (on a CUDA
-    tensor) or its plain version (on a CPU or meta tensor); anything else
+    Shapes with seq % 128 == 0 and dim <= 128 take K3 by
+    :func:`kernel_route` (on a CUDA tensor) or its plain version (on a CPU
+    or meta tensor); anything else
     takes :func:`reference_attention` (same math). Differentiable: the
     backward runs K4 and K5 (or their plain version on the CPU).
     """
@@ -318,6 +382,9 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal, True)
 
 
-# One count for both entry points: each launch of K3 adds one.
+# One count for both entry points: each launch of K3 adds one, to the total
+# and to its route's.
 flash_attention.launches = _build.LaunchCount()
+flash_attention.route_launches = _route_counts()
 flash_attention_lse.launches = flash_attention.launches
+flash_attention_lse.route_launches = flash_attention.route_launches
