@@ -15,11 +15,14 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    from ``src/`` into ``build/sched/``.
 3. Kernel checks on the card against the plain PyTorch versions:
    ``fused_mix`` bit-exact in f32 and bf16 at one full burner chunk
-   (8192x8192) and at 16384x16384; ``tiled_matmul`` within rtol 1e-4, atol 1e-4*max|want| at
-   256x384 @ 384x128, 4096^3 and one full chunk (TF32 off for the plain
-   version); the flash-attention forward (K3), ``out`` and ``lse``, at
-   the LM's scoring shape [4, 2048, 32, 128] in bf16 and f32, causal and
-   full, at [2, 256, 2, 64] and cross-length 128 x 256 both ways (out
+   (8192x8192) and at 16384x16384; ``tiled_matmul`` within rtol 1e-4,
+   atol 1e-4*max|want| (TF32 off for the plain version) at 256x384 @
+   384x128, 4096^3 and one full chunk in f32, at 4096^3 in bf16 (its
+   output the f32 product rounded to nearest even, bit for bit) and f32
+   @ bf16 at 384x256 @ 256x640; the flash-attention forward (K3), ``out``
+   and ``lse``, at the LM's scoring shape [4, 2048, 32, 128] in bf16 and
+   f32, causal and full, at [2, 256, 2, 64] and cross-length 128 x 256
+   both ways (out
    within the dtype's tolerance, 2e-5 in f32 and 2e-2 in bf16, and each
    64-row tile's norm-wise relative error within ``K3_TILE_REL``; lse
    within 2e-5). The flash-attention backward kernels, K4 (dQ) and K5
@@ -29,10 +32,11 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    f32 and 5e-2 in bf16, and tile by tile within ``BWD_TILE_REL``). At
    the main shapes a zeroed output and one with tiles skipped must fail
    the tile checks. Each case names the route it took
-   (``kernel_route``): bf16 K3 and K5 run the wgmma + TMA kernels, f32
-   the CUDA-core ones, K4 the CUDA-core one always. Times from CUDA
-   events; ``torch.matmul`` in bf16, ``scaled_dot_product_attention``
-   and its backward are timed as the library yardsticks.
+   (``kernel_route``): bf16 K3, K4 and K5 run the wgmma + TMA kernels,
+   f32 the CUDA-core ones. Times from CUDA events; ``torch.matmul`` in
+   bf16 (with and without the casts of f32 operands),
+   ``scaled_dot_product_attention`` and its backward are timed as the
+   library yardsticks.
 4. The main path, once per burner kind (matmul through the tile kernel
    with ``TPUSHARE_PALLAS_MATMUL=1``, then add through the mix kernel):
    a private scheduler, one ``PhysicalPool`` of the arena budget, a short
@@ -69,7 +73,7 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    co-located loss and the final checksum of parameters and momentum
    must equal the solo run's, both tenants must be dropped at least
    twice, and K3, K4 and K5 must have launched 2 x 24, 24 and 24 times a
-   step, K3 and K5 every time by the wgmma route.
+   step, every time by the wgmma route.
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and ``{"ok": true, "device": {...}}``.
 """
@@ -133,8 +137,10 @@ from nvshare_tpu_torch.ops import (  # noqa: E402
     flash_backward_reference,
     fused_mix,
     fused_mix_reference,
+    matmul_kernel,
     tiled_matmul,
     tiled_matmul_reference,
+    to_bf16,
 )
 
 GiB = 1 << 30
@@ -294,44 +300,71 @@ def check_mix(gen) -> dict:
 
 
 def check_matmul(gen) -> dict:
-    """tiled_matmul against its plain version (TF32 off)."""
+    """tiled_matmul against its plain version (TF32 off). The wrapper
+    rounds its operands to bf16 and launches K2 (``matmul_kernel``) on
+    them, which writes a's type from f32 accumulators. Each case must
+    launch K2 once. Its f32 output (the wrapper's, or for bf16 a the
+    kernel's own f32 output on the same operands) is held to rtol 1e-4
+    and atol 1e-4 * max|want|; a bf16 output must be those f32 values
+    rounded to nearest even, bit for bit. Cases: f32 operands at 256x384
+    @ 384x128 (a tile column half past N), 4096^3 and one full chunk (the
+    main path's, last); bf16 operands at 4096^3; f32 a with bf16 b at
+    384x256 @ 256x640. Timed: the kernel alone on the bf16 operands
+    against ``torch.matmul`` in bf16, and the wrapper with its casts
+    against ``torch.matmul(a.bfloat16(), b.bfloat16())``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     entry = None
-    for m, k, n in ((256, 384, 128), (4096, 4096, 4096),
-                    (CHUNK_SIDE, CHUNK_SIDE, CHUNK_SIDE)):  # last: main path
-        a = torch.rand((m, k), generator=gen, device="cuda")
-        b = torch.rand((k, n), generator=gen, device="cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = ((256, 384, 128, f32, f32), (4096, 4096, 4096, f32, f32),
+             (4096, 4096, 4096, bf16, bf16), (384, 256, 640, f32, bf16),
+             (CHUNK_SIDE, CHUNK_SIDE, CHUNK_SIDE, f32, f32))
+    for m, k, n, a_dtype, b_dtype in cases:
+        a = torch.rand((m, k), generator=gen, device="cuda").to(a_dtype)
+        b = torch.rand((k, n), generator=gen, device="cuda").to(b_dtype)
+        a16, b16 = to_bf16(a), to_bf16(b)
+        before = tiled_matmul.launches.value
         got = tiled_matmul(a, b)
-        want = tiled_matmul_reference(a, b)
+        launched = tiled_matmul.launches.value - before
+        acc = got if a_dtype == f32 else matmul_kernel(a16, b16, f32)
+        want = tiled_matmul_reference(a16.float(), b16)
         torch.cuda.synchronize()
         max_want = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        torch.testing.assert_close(got, want, rtol=1e-4,
+        err = (acc - want).abs().max().item()
+        torch.testing.assert_close(acc, want, rtol=1e-4,
                                    atol=1e-4 * max_want)
-        del got, want
-        reps = 5
-        ms = cuda_ms(lambda: tiled_matmul(a, b), reps)
+        if launched != 1 or not torch.equal(got, acc.to(a_dtype)):
+            raise AssertionError(
+                f"K2 {m}x{k} @ {k}x{n}: {launched} launches; the {a_dtype} "
+                "output is not the f32 product rounded to nearest even")
+        del got, acc, want
+        reps = 10
+        ms = cuda_ms(lambda: matmul_kernel(a16, b16, a_dtype), reps)
+        wrapper_ms = cuda_ms(lambda: tiled_matmul(a, b), reps)
         plain_ms = cuda_ms(lambda: tiled_matmul_reference(a, b), reps)
-        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         lib_ms = cuda_ms(lambda: torch.matmul(a16, b16), reps)
-        del a16, b16
+        lib_cast_ms = cuda_ms(
+            lambda: torch.matmul(a.to(bf16), b.to(bf16)), reps)
         flops = 2.0 * m * n * k
-        nbytes = (m * k + k * n + m * n) * 4
+        # The kernel's own work: bf16 operands in, a's type out.
+        nbytes = (m * k + k * n) * 2 + m * n * a.element_size()
         ops_ms = flops / BF16_FLOPS * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
-        log(f"K2 tiled_matmul f32 {m}x{k} @ {k}x{n}: max abs err {err:.4g} "
-            f"(max|want| {max_want:.4g}); {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain f32 {plain_ms:.3f} ms, "
+        log(f"K2 tiled_matmul {str(a_dtype)[6:]} @ {str(b_dtype)[6:]} {m}x{k}"
+            f" @ {k}x{n}: max abs err {err:.4g} (max|want| {max_want:.4g}); "
+            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), wrapper "
+            f"with casts {wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"torch.matmul bf16 {lib_ms:.3f} ms "
-            f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} ms")
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s), with casts "
+            f"{lib_cast_ms:.3f} ms, bound {bound_ms:.3f} ms")
         if m == CHUNK_SIDE:
-            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            entry = {"design": "wgmma+tma", "max_abs_err": err, "ms": ms,
+                     "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms,
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes",
-                     "library_ms": lib_ms}
-        del a, b
+                     "library_ms": lib_ms, "library_cast_ms": lib_cast_ms}
+        del a, b, a16, b16
     torch.cuda.empty_cache()
     return entry
 
@@ -463,16 +496,15 @@ def tile_rel_err(got, want) -> float:
 # The tight limits on tile_rel_err for K3 and for K4 and K5 against their
 # plain versions, which compute in f32 and round only their outputs.
 # f32 (the CUDA-core kernels): only the summation order differs (at most
-# 1.3e-6 read for K3 and 1.6e-7 for K4/K5 on an H100, PERF.md). bf16: K4
-# computes in f32 too, so its entries differ by at most one bf16 ulp of
-# the output (at most 8e-4 read). The wgmma K3 and K5 also round their
-# probabilities (K3's P, K5's P^T) and K5's dS^T to bf16 before the
-# products that take them, where the plain versions keep f32: a relative
-# rounding of at most 2**-9 = 2.0e-3 an entry, averaged over each sum, on
-# top of the output's own rounding to bf16 (2.6e-3 to 3.6e-3 read for
-# both at every check shape and layer, PERF.md). 1e-2 holds these with
-# room, and a zeroed or skipped tile (1.0) fails it by two orders of
-# magnitude.
+# 1.3e-6 read for K3 and 1.6e-7 for K4/K5 on an H100, PERF.md). bf16: the
+# wgmma kernels also round an operand of their last products to bf16,
+# where the plain versions keep f32: K3 its probabilities P, K5 its P^T
+# and dS^T, K4 its dS (before dS k). That is a relative rounding of at
+# most 2**-9 = 2.0e-3 an entry, averaged over each sum, on top of the
+# output's own rounding to bf16 (2.6e-3 to 3.6e-3 read for K3 and K5 at
+# every check shape and layer, PERF.md; the CUDA-core K4, which rounded
+# only its output, read at most 8e-4). 1e-2 holds these with room, and a
+# zeroed or skipped tile (1.0) fails it by two orders of magnitude.
 K3_TILE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 BWD_TILE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -483,7 +515,7 @@ def check_attention_backward(gen) -> tuple:
     from K3), held two ways: entry by entry at the JAX kernel tests'
     rtol = atol (2e-4 in f32, 5e-2 in bf16), and tile by tile to
     BWD_TILE_REL, which scales with the gradients. Each case must launch
-    K5 once by the route ``kernel_route`` names (K4 has one route). At the
+    K4 and K5 once each by the route ``kernel_route`` names. At the
     training shape it also shows that a zeroed output, and one whose
     tiles past the fourth are skipped, fail the tile check. The training
     shape (bf16, causal) is timed against the plain versions and against
@@ -516,10 +548,11 @@ def check_attention_backward(gen) -> tuple:
                  .mul_(0.5) if with_glse else None)
         args = (q, k, v, do, lse, delta, causal, g_lse)
         route = kernel_route(q, k)
-        count = flash_backward_dkv.route_launches[route]
-        before = count.value
+        counts = [fn.route_launches[route]
+                  for fn in (flash_backward_dq, flash_backward_dkv)]
+        before = [c.value for c in counts]
         got = (flash_backward_dq(*args), *flash_backward_dkv(*args))
-        launched = count.value - before
+        launched = [c.value - n for c, n in zip(counts, before)]
         want = flash_backward_reference(*args)
         torch.cuda.synchronize()
         tol = 2e-4 if dtype == torch.float32 else 5e-2
@@ -528,12 +561,12 @@ def check_attention_backward(gen) -> tuple:
                 for g, w in zip(got, want)]
         rels = [tile_rel_err(g, w) for g, w in zip(got, want)]
         worst = max(_excess(g, w, tol) for g, w in zip(got, want))
-        if worst > 0 or max(rels) > rel_tol or launched != 1:
+        if worst > 0 or max(rels) > rel_tol or launched != [1, 1]:
             raise AssertionError(
                 f"flash backward {dtype} [{b},{sq},{h},{d}] sk {sk} causal "
                 f"{causal} g_lse {with_glse}: max abs err dq/dk/dv {errs} "
                 f"(rtol = atol = {tol}), tile-wise relative error {rels} "
-                f"(limit {rel_tol}), K5 launched {launched} times by the "
+                f"(limit {rel_tol}), K4/K5 launched {launched} times by the "
                 f"{route} route")
         if (b, sq, sk, h, d, dtype, causal, with_glse) == main:
             for g, w in zip(got, want):
@@ -545,7 +578,7 @@ def check_attention_backward(gen) -> tuple:
         rows = b * h * sq * 4 * (3 if with_glse else 2)
         line = (f"flash backward {str(dtype)[6:]} [{b},{sq},{h},{d}] sk {sk} "
                 f"{'causal' if causal else 'full'}"
-                f"{' g_lse' if with_glse else ''} (K5 {route}): max abs err "
+                f"{' g_lse' if with_glse else ''} ({route}): max abs err "
                 f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; "
                 f"tile-wise relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}"
                 f", dv {rels[2]:.3g}")
@@ -560,7 +593,7 @@ def check_attention_backward(gen) -> tuple:
             bytes_ms = (io + rows + b * out_rows * h * d * q.element_size()) \
                 / HBM_BYTES_PER_S * 1e3
             timed[name] = dict(
-                design=CUDA_CORE if name == "K4" else route,
+                design=route,
                 max_abs_err=max(errs[:1] if name == "K4" else errs[1:]),
                 ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -1226,7 +1259,7 @@ def check_lm_training() -> dict:
     out["transient_bytes"] = torch.cuda.max_memory_allocated() - base
     out["launches"] = [fn.launches.value for fn in wrappers]
     out["wgmma_launches"] = [fn.route_launches[WGMMA].value
-                             for fn in (flash_attention, flash_backward_dkv)]
+                             for fn in wrappers]
     out["loss"] = loss.item()
     kernel_grads = {k: g.cpu() for k, g in grads.items()}
     del grads
@@ -1294,11 +1327,10 @@ def check_lm_training() -> dict:
     if max(err) > rel_tol or len(out["layers"]) != L:
         raise AssertionError(f"K4/K5 at the LM's layers: {out['layers']}")
     if out["launches"] != [2 * L, L, L] or \
-            out["wgmma_launches"] != [2 * L, L]:
+            out["wgmma_launches"] != [2 * L, L, L]:
         raise AssertionError(f"one step launched K3/K4/K5 "
-                             f"{out['launches']}, not {[2 * L, L, L]} (K3 "
-                             f"and K5 by the wgmma route: "
-                             f"{out['wgmma_launches']})")
+                             f"{out['launches']}, not {[2 * L, L, L]} (by "
+                             f"the wgmma route: {out['wgmma_launches']})")
     if loss_rel > 1e-3 or grad_err[worst_grad] > GRAD_REL:
         raise AssertionError(f"the kernel step vs the plain step: loss "
                              f"relative {loss_rel}, gradients {grad_err}")
@@ -1419,7 +1451,7 @@ def train_phases(phases: Phases, budget: int, physical: int,
     res = phases.run("main path train", run_train, budget, sched, steps, tq)
     launches = [fn.launches.value for fn in wrappers]
     res["wgmma_launches"] = [fn.route_launches[WGMMA].value
-                             for fn in (flash_attention, flash_backward_dkv)]
+                             for fn in wrappers]
     runs = 3 * steps  # solo + two co-located tenants
     want = [2 * TRAIN.depth * runs, TRAIN.depth * runs, TRAIN.depth * runs]
     if launches != want:
@@ -1473,8 +1505,8 @@ def main() -> int:
         # Step times: the kernels' share from this run's kernel timings,
         # the whole step from a short calibration run.
         mm_step = phases.run("calibrate matmul", calibrate_step, "matmul",
-                             chunks, budget,
-                             chunks * mm_entry["ms"] / 1e3 / DEVICE_RATIO)
+                             chunks, budget, chunks * mm_entry["wrapper_ms"]
+                             / 1e3 / DEVICE_RATIO)
         add_step = phases.run("calibrate add", calibrate_step, "add",
                               chunks, budget,
                               chunks * mix_entry["ms"] / 1e3 / DEVICE_RATIO)
@@ -1497,15 +1529,16 @@ def main() -> int:
                              f"{mm_launches}, mix {mix_launches}")
     k3_launches, k4_launches, k5_launches = train["launches"]
     k3_wgmma = lm["wgmma_launches"] + train["wgmma_launches"][0]
-    k5_wgmma = train["wgmma_launches"][1]
+    k4_wgmma, k5_wgmma = train["wgmma_launches"][1:]
     log(f"main-path launches: tiled_matmul {mm_launches}, fused_mix "
         f"{mix_launches}, flash_attention {lm['launches']} (serving) + "
         f"{k3_launches} (training), {k3_wgmma} of them by the wgmma route, "
-        f"flash_backward_dq {k4_launches}, flash_backward_dkv {k5_launches}"
-        f", {k5_wgmma} by the wgmma route")
-    if k3_wgmma != lm["launches"] + k3_launches or k5_wgmma != k5_launches:
-        raise AssertionError("a main-path launch of K3 or K5 did not take "
-                             "the wgmma route")
+        f"flash_backward_dq {k4_launches}, {k4_wgmma} by the wgmma route, "
+        f"flash_backward_dkv {k5_launches}, {k5_wgmma} by the wgmma route")
+    if k3_wgmma != lm["launches"] + k3_launches or \
+            k4_wgmma != k4_launches or k5_wgmma != k5_launches:
+        raise AssertionError("a main-path launch of K3, K4 or K5 did not "
+                             "take the wgmma route")
     log("phase seconds: " + json.dumps(phases.seconds))
     log("measurements: " + json.dumps({
         "card": card,
@@ -1532,14 +1565,13 @@ def main() -> int:
             "peak_bytes")},
         "train_check": train["check"]}))
     kernels = [
-        # K1 runs on the CUDA cores; K2 takes bf16 tensor-core fragments
-        # through nvcuda::wmma (mma.sync), neither cuda-core nor wgmma.
+        # K1 runs on the CUDA cores.
         dict(name="fused_mix", route="cuda", design=CUDA_CORE,
              source="nvshare_tpu_torch/csrc/mix.cu",
              replaces="nvshare_tpu/ops/mix.py:42", launches=mix_launches,
              **mix_entry),
-        dict(name="tiled_matmul", route="cuda", design="wmma",
-             source="nvshare_tpu_torch/csrc/matmul.cu",
+        dict(name="tiled_matmul", route="cuda",
+             source="nvshare_tpu_torch/csrc/matmul_sm90.cu",
              replaces="nvshare_tpu/ops/matmul.py:58", launches=mm_launches,
              **mm_entry),
         dict(name="flash_attention", route="cuda",
@@ -1547,7 +1579,7 @@ def main() -> int:
              replaces="nvshare_tpu/ops/attention.py:120",
              launches=lm["launches"] + k3_launches, **att_entry),
         dict(name="flash_backward_dq", route="cuda",
-             source="nvshare_tpu_torch/csrc/attention_bwd.cu",
+             source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:267",
              launches=k4_launches, **dq_entry),
         dict(name="flash_backward_dkv", route="cuda",

@@ -25,7 +25,8 @@ layers, remat on, 4 x 2048 tokens a step), measures without the arena one
 ``lm_train_step`` (host clock, synchronized), its pass on meta tensors
 (what ``vop`` runs once to size its outputs) and a profiler breakdown of
 one step: device time, host time, the device's idle share of the step,
-the kernels with the most device time, and K3's, K4's and K5's.
+the kernels with the most device time, and K3's, K4's and K5's, each
+under the route its kernel took (``kernel_route``).
 
 Prints one line per measurement and, last, the card's name and power limit
 and one JSON object of all of them.
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -64,6 +66,22 @@ from nvshare_tpu_torch.models.transformer import (  # noqa: E402
     transformer_forward,
 )
 from nvshare_tpu_torch.ops import _build, flash_attention_reference  # noqa: E402
+from nvshare_tpu_torch.ops.attention import CUDA_CORE, WGMMA  # noqa: E402
+
+# The flash kernels' names in a trace: (kernel, route).
+FLASH_KERNELS = {
+    "flash_fwd_sm90": ("K3", WGMMA), "flash_fwd": ("K3", CUDA_CORE),
+    "flash_bwd_dq_sm90": ("K4", WGMMA), "flash_bwd_dq": ("K4", CUDA_CORE),
+    "flash_bwd_dkv_sm90": ("K5", WGMMA), "flash_bwd_dkv": ("K5", CUDA_CORE),
+}
+
+
+def flash_label(key: str):
+    """'K4 wgmma+tma' for a trace event of a flash kernel, else None."""
+    m = re.search(r"\b(flash_\w+?)<", key)
+    if m is None or m.group(1) not in FLASH_KERNELS:
+        return None
+    return " ".join(FLASH_KERNELS[m.group(1)])
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -81,7 +99,8 @@ def wall_ms(fn, reps: int) -> float:
 def breakdown(fn, reps: int, top: int = 6) -> dict:
     """Device and host milliseconds per call from ``torch.profiler``, the
     ops and the kernels with the most device time, and every flash
-    kernel's (launched through ctypes, they show as kernels, not ops)."""
+    kernel's under its kernel and route, as "K4 wgmma+tma" (launched
+    through ctypes, they show as kernels, not ops)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -99,16 +118,19 @@ def breakdown(fn, reps: int, top: int = 6) -> dict:
                  key=lambda e: -e.device_time_total)[:top]
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)[:top]
+    flash: dict = {}
+    for e in events:
+        label = flash_label(e.key)
+        if e.device_type == DeviceType.CUDA and label:
+            flash[label] = (flash.get(label, 0.0)
+                            + e.self_device_time_total / 1e3 / reps)
     return {"device_ms": device, "host_ms": host,
             "top_ops_device_ms": {e.key: e.device_time_total / 1e3 / reps
                                   for e in ops},
             "top_kernels_device_ms": {
                 e.key[:60]: e.self_device_time_total / 1e3 / reps
                 for e in kernels},
-            "flash_kernels_device_ms": {
-                e.key[:60]: e.self_device_time_total / 1e3 / reps
-                for e in events if e.device_type == DeviceType.CUDA
-                and "flash_" in e.key}}
+            "flash_kernels_device_ms": flash}
 
 
 def train_probe(out: dict) -> None:

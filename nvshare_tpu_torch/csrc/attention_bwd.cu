@@ -17,10 +17,9 @@
 // (2.75e11), against 0.4 GB of q, k, v, dO, lse and delta and 0.07-0.13 GB
 // of outputs. Like the Pallas kernels and K3's f32 route (attention.cu),
 // these upcast to f32 and do all math in f32 on the CUDA cores, so their
-// own ceiling is the card's f32 rate. K4 here takes every dtype (a bf16
-// wgmma design of it is later work); this K5 is the f32 route, and that of
+// own ceiling is the card's f32 rate. They are the f32 route, and that of
 // bf16 at head widths other than 64 and 128: bf16 at 64 or 128 takes the
-// wgmma K5 in attention_bwd_sm90.cu.
+// wgmma K4 and K5 in attention_bwd_sm90.cu.
 //
 // Design. Two kernels, each output tile with exactly one writer and no
 // atomics, so the gradients are the same bits on every run (co-located

@@ -13,8 +13,10 @@ from nvshare_tpu_torch.ops.attention import (  # noqa: F401
     reference_attention,
 )
 from nvshare_tpu_torch.ops.matmul import (  # noqa: F401
+    matmul_kernel,
     tiled_matmul,
     tiled_matmul_reference,
+    to_bf16,
 )
 from nvshare_tpu_torch.ops.mix import fused_mix, fused_mix_reference  # noqa: F401
 from nvshare_tpu_torch.ops.rope import rope_rotate  # noqa: F401

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = {"mix": "mix.cu", "matmul": "matmul.cu",
+SOURCES = {"mix": "mix.cu", "matmul_sm90": "matmul_sm90.cu",
            "attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
            "attention_sm90": "attention_sm90.cu",
            "attention_bwd_sm90": "attention_bwd_sm90.cu"}
@@ -149,22 +149,20 @@ def _bind(name: str, lib) -> None:
     ll = ctypes.c_longlong
     if name == "mix":
         entries = {"tpushare_fused_mix": [p, p, p, ll, i, f, f, f, p]}
-    elif name == "matmul":
-        entries = {"tpushare_tiled_matmul": [p, p, p, i, i, i, i, i, p]}
+    elif name == "matmul_sm90":
+        entries = {"tpushare_tiled_matmul_sm90": [p, p, p, i, i, i, i, p]}
     elif name in ("attention", "attention_sm90"):
         # Both routes of K3 take the same arguments.
         suffix = name[len("attention"):]
         entries = {f"tpushare_flash_forward{suffix}":
                    [p, p, p, p, p, *([i] * 5), *([ll] * 9), i, i, f, p]}
-    elif name == "attention_bwd":
-        entries = {f"tpushare_flash_backward_{which}":
+    elif name in ("attention_bwd", "attention_bwd_sm90"):
+        # Both routes of K4 and of K5 take the same arguments.
+        suffix = name[len("attention_bwd"):]
+        entries = {f"tpushare_flash_backward_{which}{suffix}":
                    [*([p] * (7 + outs)), *([i] * 5), *([ll] * 12), i, i, f,
                     p]
                    for which, outs in (("dq", 1), ("dkv", 2))}
-    elif name == "attention_bwd_sm90":
-        # The arguments of attention_bwd's dK/dV entry.
-        entries = {"tpushare_flash_backward_dkv_sm90":
-                   [*([p] * 9), *([i] * 5), *([ll] * 12), i, i, f, p]}
     else:
         raise KeyError(name)
     for entry, argtypes in entries.items():

@@ -7,14 +7,14 @@ does. Among eligible shapes, :func:`kernel_route` chooses by declared dtype
 and width, never by trying one and falling back:
 
 - ``"wgmma+tma"``: bf16 with ``d`` in {64, 128}. The forward (K3,
-  ``csrc/attention_sm90.cu``) and the dK/dV sweep (K5,
-  ``csrc/attention_bwd_sm90.cu``) are Hopper tensor-core kernels: TMA
-  loads into a ring of shared-memory stages, ``wgmma`` products of bf16
-  into f32. They round the probabilities P (and, in K5, dS) to bf16
-  before their products, where the plain versions stay in f32.
+  ``csrc/attention_sm90.cu``), the dQ sweep (K4) and the dK/dV sweep (K5,
+  both ``csrc/attention_bwd_sm90.cu``) are Hopper tensor-core kernels:
+  TMA loads into a ring of shared-memory stages, ``wgmma`` products of
+  bf16 into f32. They round the probabilities P (K3, K5) and dS (K4, K5)
+  to bf16 before their products, where the plain versions stay in f32.
 - ``"cuda-core"``: f32, and bf16 of any other ``d <= 128``. The forward
-  (``csrc/attention.cu``) and K5 (``csrc/attention_bwd.cu``) compute in
-  f32 on the CUDA cores, as the Pallas kernels do, and match the f32
+  (``csrc/attention.cu``), K4 and K5 (``csrc/attention_bwd.cu``) compute
+  in f32 on the CUDA cores, as the Pallas kernels do, and match the f32
   plain versions to summation order.
 
 q, k and v are read strided as they lie (a view into a fused qkv
@@ -25,10 +25,10 @@ Each wrapper counts its launches in ``.launches`` and, per route, in
 
 Both entry points run inside a :class:`torch.autograd.Function`. Its
 backward saves q, k, v, the output and the LSE, and recomputes the
-probabilities from the LSE in two kernels: the dQ sweep
-:func:`flash_backward_dq` (K4, CUDA cores on either route) and the dK/dV
-sweep :func:`flash_backward_dkv` (K5, by the route above), one writer per
-output tile, no atomics. The LSE output's cotangent folds into dS, so
+probabilities from the LSE in two kernels, each by the route above: the
+dQ sweep :func:`flash_backward_dq` (K4) and the dK/dV sweep
+:func:`flash_backward_dkv` (K5), one writer per output tile, no
+atomics. The LSE output's cotangent folds into dS, so
 :func:`flash_attention_lse` is differentiable in both outputs. On CPU or
 meta tensors the wrappers run their plain versions (together,
 :func:`flash_backward_reference`); the ragged route differentiates
@@ -147,8 +147,8 @@ REFERENCE = "reference"
 
 
 def kernel_route(q: torch.Tensor, k: torch.Tensor) -> str:
-    """The route of flash attention (K3, and K5 in the backward) for q
-    [B,Sq,H,D] and k [B,Sk,H,D], by declared shape and dtype: REFERENCE
+    """The route of flash attention (K3, and K4 and K5 in the backward)
+    for q [B,Sq,H,D] and k [B,Sk,H,D], by declared shape and dtype: REFERENCE
     for ragged or oversized shapes, WGMMA for bf16 with d in {64, 128},
     CUDA_CORE for every other eligible shape (f32, or bf16 of another
     width). On a CPU or meta tensor it names the route a CUDA tensor of
@@ -250,23 +250,19 @@ def _launch_backward(which: str, q, k, v, do, lse, delta, g_lse,
         raise ValueError(f"lse, delta and g_lse must be float32 "
                          f"[{b * h}, {sq}]")
     code = _build.dtype_code(q.dtype, "flash backward")
-    # K4 takes the CUDA-core kernel on every route.
-    route = kernel_route(q, k) if which == "dkv" else CUDA_CORE
+    route = kernel_route(q, k)
     if route == WGMMA:
         q, k, v, do = (_tma_ready(x) for x in (q, k, v, do))
     else:
         q, k, v, do = (_strided(x) for x in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     g_lse = None if g_lse is None else g_lse.contiguous()
-    if which == "dq":
-        outs = (torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device),)
-        fn = _build.load("attention_bwd").tpushare_flash_backward_dq
-    else:
-        outs = tuple(torch.empty((b, sk, h, d), dtype=q.dtype,
-                                 device=q.device) for _ in range(2))
-        fn = (_build.load("attention_bwd_sm90")
-              .tpushare_flash_backward_dkv_sm90 if route == WGMMA else
-              _build.load("attention_bwd").tpushare_flash_backward_dkv)
+    n_out, seq = (1, sq) if which == "dq" else (2, sk)
+    outs = tuple(torch.empty((b, seq, h, d), dtype=q.dtype,
+                             device=q.device) for _ in range(n_out))
+    suffix = "_sm90" if route == WGMMA else ""
+    fn = getattr(_build.load(f"attention_bwd{suffix}"),
+                 f"tpushare_flash_backward_{which}{suffix}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -283,15 +279,17 @@ def flash_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lse: torch.Tensor,
                       delta: torch.Tensor, causal: bool = False,
                       g_lse: torch.Tensor | None = None) -> torch.Tensor:
-    """dQ [B,Sq,H,D] in q's type: K4 on a CUDA tensor, the plain version
+    """dQ [B,Sq,H,D] in q's type: K4 on a CUDA tensor, by
+    :func:`kernel_route`, the plain version
     (:func:`flash_backward_dq_reference`) on a CPU or meta tensor.
     Kernel-eligible shapes only."""
     if q.device.type != "cuda":
         return flash_backward_dq_reference(q, k, v, do, lse, delta, causal,
                                            g_lse)
-    (dq,), _ = _launch_backward("dq", q, k, v, do, lse, delta, g_lse,
-                                causal)
+    (dq,), route = _launch_backward("dq", q, k, v, do, lse, delta, g_lse,
+                                    causal)
     flash_backward_dq.launches.add()
+    flash_backward_dq.route_launches[route].add()
     return dq
 
 
@@ -314,6 +312,7 @@ def flash_backward_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_backward_dq.launches = _build.LaunchCount()
+flash_backward_dq.route_launches = _route_counts()
 flash_backward_dkv.launches = _build.LaunchCount()
 flash_backward_dkv.route_launches = _route_counts()
 

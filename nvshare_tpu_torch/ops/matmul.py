@@ -2,9 +2,12 @@
 
 ``tiled_matmul`` is the port of ``nvshare_tpu.ops.tiled_matmul`` (the
 Pallas ``_mm_kernel``): ``a @ b`` with both operands rounded to bf16,
-products accumulated in f32 and the result cast to ``a.dtype``. On a CUDA
-tensor it launches the tensor-core kernel in ``csrc/matmul.cu``; on a CPU
-or meta tensor it runs :func:`tiled_matmul_reference`. The reference's
+products accumulated in f32 and the result cast to ``a.dtype``. As the JAX
+wrapper does outside its Pallas call, the wrapper rounds the operands to
+contiguous bf16 first (:func:`to_bf16`); then, on a CUDA tensor, it
+launches the Hopper kernel in ``csrc/matmul_sm90.cu`` (TMA + ``wgmma``),
+which writes ``a.dtype`` straight from its f32 accumulators. On a CPU or
+meta tensor it runs :func:`tiled_matmul_reference`. The reference's
 eligibility rule is kept: shapes that are not multiples of 128 (or whose
 inner dimensions differ) take the plain bf16 product on any device, as
 the JAX function leaves them to XLA's dot.
@@ -21,13 +24,55 @@ _BN = 128
 _BK = 128
 
 
+def to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernel reads it: contiguous bf16. Other types are
+    rounded to nearest even, as ``astype(jnp.bfloat16)`` rounds them; a
+    contiguous bf16 tensor is returned as it is, without a copy."""
+    if x.dtype == torch.bfloat16:
+        return x.contiguous()
+    return x.to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
 def tiled_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: bf16-rounded operands, an f32 product,
     cast to ``a.dtype``. On the card, compare it with TF32 off
     (``torch.backends.cuda.matmul.allow_tf32 = False``, the default), or
     the f32 product itself is rounded."""
-    prod = a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+    prod = to_bf16(a).float() @ to_bf16(b).float()
     return prod.to(a.dtype)
+
+
+def matmul_kernel(a: torch.Tensor, b: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """K2 itself: ``a @ b`` of contiguous bf16 CUDA tensors [m, k] and
+    [k, n] (multiples of 128), written in ``out_dtype`` (float32 or
+    bfloat16) from f32 accumulators. Counts the launch."""
+    m, k = a.shape
+    k2, n = b.shape
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or \
+            not (a.is_contiguous() and b.is_contiguous()):
+        raise TypeError("the tiled_matmul kernel takes contiguous bf16 "
+                        "operands")
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError("the tiled_matmul kernel takes operands on one "
+                         "CUDA device")
+    if k != k2 or m % _BM or n % _BN or k % _BK:
+        raise ValueError(f"the tiled_matmul kernel takes [m, k] @ [k, n] "
+                         f"in multiples of 128; got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("tiled_matmul kernel takes 16-byte aligned operands")
+    code = _build.dtype_code(out_dtype, "tiled_matmul")
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    lib = _build.load("matmul_sm90")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.tpushare_tiled_matmul_sm90(a.data_ptr(), b.data_ptr(),
+                                            out.data_ptr(), m, n, k, code,
+                                            stream)
+    _build.check(rc, "tiled_matmul")
+    tiled_matmul.launches.add()
+    return out
 
 
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,24 +81,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k2, n = b.shape
     if k != k2 or m % _BM or n % _BN or k % _BK or a.device.type != "cuda":
         return tiled_matmul_reference(a, b)
-    if b.device != a.device:
-        raise ValueError("tiled_matmul operands lie on different devices")
-    a_code = _build.dtype_code(a.dtype, "tiled_matmul")
-    b_code = _build.dtype_code(b.dtype, "tiled_matmul")
-    a = a.contiguous()
-    b = b.contiguous()
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    if (a.data_ptr() | b.data_ptr()) % 16:
-        raise ValueError("tiled_matmul kernel takes 16-byte aligned operands")
-    lib = _build.load("matmul")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.tpushare_tiled_matmul(a.data_ptr(), b.data_ptr(),
-                                       out.data_ptr(), m, n, k, a_code,
-                                       b_code, stream)
-    _build.check(rc, "tiled_matmul")
-    tiled_matmul.launches.add()
-    return out
+    return matmul_kernel(to_bf16(a), to_bf16(b), a.dtype)
 
 
 tiled_matmul.launches = _build.LaunchCount()

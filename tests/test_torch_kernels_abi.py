@@ -45,15 +45,26 @@ def test_route_is_chosen_by_shape_and_dtype(case):
     meta = torch.empty(q.shape, dtype=dtype, device="meta")
     assert tatt.kernel_route(meta, meta) == route
     # On CPU tensors every route runs the plain version and counts no
-    # launch on either kernel route.
-    counts = [*tatt.flash_attention.route_launches.values(),
-              *tatt.flash_backward_dkv.route_launches.values()]
+    # launch on either kernel route, forward (K3) or backward (K4, K5).
+    wrappers = (tatt.flash_attention, tatt.flash_backward_dq,
+                tatt.flash_backward_dkv)
+    counts = [c for fn in wrappers
+              for c in (fn.launches, *fn.route_launches.values())]
     before = [c.value for c in counts]
     out = tatt.flash_attention(q, k, v, causal=True)
     if route == tatt.REFERENCE:
         want = tatt.reference_attention(q, k, v, causal=True)
     else:
-        want = tatt.flash_attention_reference(q, k, v, causal=True)[0]
+        want, lse = tatt.flash_attention_reference(q, k, v, causal=True)
+        do = torch.from_numpy(rng.randn(*q.shape).astype(np.float32)
+                              ).to(dtype)
+        args = (q, k, v, do, lse, tatt.attention_delta(want, do), True)
+        torch.testing.assert_close(
+            tatt.flash_backward_dq(*args),
+            tatt.flash_backward_dq_reference(*args), rtol=0, atol=0)
+        for got_g, want_g in zip(tatt.flash_backward_dkv(*args),
+                                 tatt.flash_backward_dkv_reference(*args)):
+            torch.testing.assert_close(got_g, want_g, rtol=0, atol=0)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
     assert [c.value for c in counts] == before
 
@@ -62,9 +73,12 @@ def test_each_route_has_its_own_count():
     fwd = tatt.flash_attention.route_launches
     assert set(fwd) == {tatt.WGMMA, tatt.CUDA_CORE}
     assert tatt.flash_attention_lse.route_launches is fwd
+    dq = tatt.flash_backward_dq.route_launches
     dkv = tatt.flash_backward_dkv.route_launches
-    assert set(dkv) == {tatt.WGMMA, tatt.CUDA_CORE}
-    counts = [tatt.flash_attention.launches, *fwd.values(), *dkv.values()]
+    assert set(dq) == set(dkv) == {tatt.WGMMA, tatt.CUDA_CORE}
+    counts = [tatt.flash_attention.launches, *fwd.values(),
+              tatt.flash_backward_dq.launches, *dq.values(),
+              tatt.flash_backward_dkv.launches, *dkv.values()]
     assert len({id(c) for c in counts}) == len(counts)
 
 
@@ -124,6 +138,19 @@ def test_bindings_match_the_c_signatures(name):
     for entry, argtypes in want.items():
         assert lib.fns[entry].argtypes == argtypes, entry
         assert lib.fns[entry].restype is ctypes.c_int, entry
+
+
+@pytest.mark.parametrize("wgmma,twin", [("attention_sm90", "attention"),
+                                        ("attention_bwd_sm90",
+                                         "attention_bwd")])
+def test_each_wgmma_entry_takes_its_twins_arguments(wgmma, twin):
+    # The wrappers call either route's entry with one argument list: K3's
+    # forward, and K4's and K5's backward.
+    fast = c_entries(_build.SOURCES[wgmma])
+    plain = c_entries(_build.SOURCES[twin])
+    assert set(fast) == {f"{name}_sm90" for name in plain}
+    for name, argtypes in plain.items():
+        assert fast[f"{name}_sm90"] == argtypes, name
 
 
 def test_the_parser_reads_each_c_type_apart():

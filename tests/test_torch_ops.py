@@ -101,6 +101,23 @@ def test_tiled_matmul_bf16_in_bf16_out():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=8e-3)
 
 
+def test_tiled_matmul_kernel_launch_count_untouched_on_cpu():
+    before = tops.tiled_matmul.launches.value
+    rng = np.random.RandomState(10)
+    tops.tiled_matmul(torch.from_numpy(rng.rand(128, 128).astype(np.float32)),
+                      torch.from_numpy(rng.rand(128, 256).astype(np.float32)))
+    assert tops.tiled_matmul.launches.value == before
+    # The kernel itself takes contiguous bf16 operands on a CUDA device
+    # only, and raises on anything else rather than run the plain version.
+    with pytest.raises(TypeError):
+        tops.matmul_kernel(torch.zeros(128, 128), torch.zeros(128, 128),
+                           torch.float32)
+    z = torch.zeros(128, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tops.matmul_kernel(z, z, torch.float32)
+    assert tops.tiled_matmul.launches.value == before
+
+
 @pytest.mark.parametrize("ma,ka,kb,nb", [(100, 60, 60, 50),
                                          (128, 128, 256, 128),
                                          (256, 200, 200, 128)])
@@ -118,6 +135,78 @@ def test_tiled_matmul_ragged_route(ma, ka, kb, nb):
         return
     want = np.asarray(jops.tiled_matmul(jnp.asarray(a), jnp.asarray(b)))
     got = tops.tiled_matmul(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def _bf16_bits(x: torch.Tensor) -> np.ndarray:
+    return x.view(torch.int16).numpy().view(np.uint16)
+
+
+def _cast_inputs(case: str) -> np.ndarray:
+    rng = np.random.RandomState(7)
+    if case == "halfway":
+        # Low 16 bits exactly 0x8000: every value lies halfway between two
+        # bf16 neighbours, so only ties-to-even decides the result.
+        hi = rng.randint(0, 1 << 16, size=(128, 256)).astype(np.uint32)
+        x = ((hi << 16) | 0x8000).view(np.float32)
+        return np.where(np.isfinite(x), x, 1.0).astype(np.float32)
+    if case == "random":
+        return (rng.randn(128, 256) * 10.0 ** rng.randint(
+            -20, 20, size=(128, 256))).astype(np.float32)
+    big = np.finfo(np.float32).max
+    return np.array([[np.inf, -np.inf, 0.0, -0.0, big, -big, 3.3961775e38,
+                      1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8),
+                      1.17549435e-38, 1e-40, -3e-39, 65504.0, 1e30,
+                      -7.5]], np.float32)
+
+
+@pytest.mark.parametrize("case", ["halfway", "random", "special"])
+def test_to_bf16_rounds_as_jax_astype(case):
+    """The wrapper's cast of f32 operands, before K2, gives the bits of the
+    JAX wrapper's ``astype(jnp.bfloat16)``: round to nearest, ties to
+    even, overflow to inf, infinities and signed zeros kept."""
+    x = _cast_inputs(case)
+    want = np.asarray(jnp.asarray(x).astype(jnp.bfloat16)).view(np.uint16)
+    got = tops.to_bf16(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    np.testing.assert_array_equal(_bf16_bits(got), want)
+
+
+def test_to_bf16_keeps_nan():
+    # NaN stays NaN in both; the payload bits may differ (PyTorch writes
+    # 0xffff, XLA a quiet NaN of the input's sign), as neither promises them.
+    x = np.array([np.nan, -np.nan, 1.0], np.float32)
+    got = tops.to_bf16(torch.from_numpy(x)).float().numpy()
+    want = np.asarray(jnp.asarray(x).astype(jnp.bfloat16), np.float32)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert got[2] == want[2] == 1.0
+
+
+def test_to_bf16_passes_contiguous_bf16_through():
+    a = torch.from_numpy(np.random.RandomState(8).rand(256, 128)
+                         .astype(np.float32)).bfloat16()
+    assert tops.to_bf16(a) is a
+    # A strided bf16 view is copied into the contiguous layout the kernel
+    # reads; the values are unchanged.
+    t = a.t()
+    got = tops.to_bf16(t)
+    assert got.is_contiguous() and got.data_ptr() != t.data_ptr()
+    assert torch.equal(got, t)
+
+
+def test_tiled_matmul_mixed_operands_match_jax():
+    """f32 a and bf16 b: each operand is rounded on its own, the result is
+    in a's type."""
+    rng = np.random.RandomState(9)
+    a = rng.rand(128, 256).astype(np.float32)
+    b = rng.rand(256, 384).astype(np.float32)
+    want = np.asarray(jops.tiled_matmul(jnp.asarray(a),
+                                        jnp.asarray(b, jnp.bfloat16)))
+    got = tops.tiled_matmul(torch.from_numpy(a),
+                            torch.from_numpy(b).bfloat16())
+    assert got.dtype == torch.float32 and tuple(got.shape) == (128, 384)
+    # As test_tiled_matmul_matches_jax: only the f32 summation order
+    # differs.
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
