@@ -48,7 +48,16 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    equal the solo checksum exactly, both tenants must be granted and
    dropped, both must evict and prefetch, and the kernel of the kind must
    have launched during the run.
-5. The language model at GPT-3 6.7B widths (``LM`` below): a full-width
+5. The handoff A/B of the proactive pager at the burner pair's working
+   set and quantum: the same pair of ``ab_workload`` tenants (every chunk
+   dirtied once, then one chunk a step re-dirtied by a donated in-place
+   ``x * 1.0001``, 30 ms of host time a step) with synchronous handoffs,
+   with ``use_pager=True``, and with ``TPUSHARE_PAGER_FIRST_TOUCH=1`` too
+   (pager knobs: PAGER_ENV, printed). Per leg: handoffs, their median
+   and p99 seconds, bytes moved at handoffs, the clean share, bytes
+   trickled and their rate, makespan / (2 x solo). Every leg's results
+   must equal the solo run's bit for bit.
+6. The language model at GPT-3 6.7B widths (``LM`` below): a full-width
    inference check (K3 against its plain version in every layer of the
    scoring forward; the logits against the plain-attention forward;
    teacher-forced decoding against the forward), the pair's sizing, one
@@ -59,8 +68,19 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    scoring checksum and decoded token must equal the solo run's, both
    tenants must be dropped at least twice and evict and prefetch, and K3
    must have launched 32 times a request, every time by the wgmma
-   route.
-6. LM training at the same widths, 24 of 32 layers, every block
+   route. Then the same pair again with the proactive pager: every
+   checksum and token must equal the solo run's, and its handoffs are
+   printed beside the synchronous pair's.
+7. The serving phases: a ``decode_workload`` tenant at the LM's cache
+   widths (d_model 4096, 2048 positions, batch 16; the cache tagged
+   "kv") that also holds untagged chunks its budget cannot keep beside
+   the cache, and a ``prefill_workload`` tenant (activations tagged
+   "act"), each alone, then as a pair with the pager and the wss policy.
+   Both checksums must equal solo; decoding must evict under pressure
+   and never a KV-tagged array; every "act" array resident at a prefill
+   handoff must leave the hot set. The decode gate wait's p50/p99 is
+   printed.
+8. LM training at the same widths, 24 of 32 layers, every block
    recomputed in the backward (``TRAIN`` below): a full-width check of
    one step (K4 and K5 against the plain backward on every layer's own
    q, k, v and dO, tile by tile within 1e-2; the
@@ -89,15 +109,17 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 import torch
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from nvshare_tpu_torch import vmem  # noqa: E402
+from nvshare_tpu_torch import telemetry, vmem  # noqa: E402
 from nvshare_tpu_torch.colocate import (  # noqa: E402
     Tenant,
     burner_workload,
@@ -106,6 +128,13 @@ from nvshare_tpu_torch.colocate import (  # noqa: E402
     run_colocated,
 )
 from nvshare_tpu_torch.models.burner import AddBurner, MatmulBurner  # noqa: E402
+from nvshare_tpu_torch.models.serving import (  # noqa: E402
+    decode_workload,
+    gate_wait_samples,
+    percentile,
+    prefill_workload,
+)
+from nvshare_tpu_torch.telemetry import events as tev  # noqa: E402
 from nvshare_tpu_torch.models.decode import (  # noqa: E402
     decode_step,
     init_kv_cache,
@@ -181,6 +210,28 @@ TRAIN = Transformer(vocab=50257, dim=4096, heads=32, depth=24, seq=2048,
 TRAIN_BATCH = 4          # sequences of TRAIN.seq tokens a step
 TRAIN_LR = 1e-2          # lm_train_step's default
 TRAIN_SEED = 0
+
+# The proactive pager's rate knobs for every pager tenant here: the
+# reference's defaults (20 ms ticks, 2 writeback streams) but one burner
+# chunk per tick and stream instead of 32 MiB, so the trickle and the
+# first-touch streams (2 x 256 MiB / 20 ms of tokens) can fill the card's
+# PCIe link rather than a sixth of it. Printed where used.
+PAGER_ENV = {"TPUSHARE_WRITEBACK_CHUNK_BYTES": str(CHUNK_BYTES),
+             "TPUSHARE_WRITEBACK_INTERVAL_S": "0.02",
+             "TPUSHARE_WRITEBACK_STREAMS": "2"}
+AB_SLEEP_S = 0.03        # the reference A/B's host time between steps
+AB_QUANTA = 3.5          # quanta of work each A/B tenant brings
+# The serving phases: the mock decoder at the LM's cache widths.
+SERVE = dict(layers=2, batch=DECODE_BATCH, max_len=2048, d_model=4096)
+SERVE_TOKENS = 640
+SERVE_REQUESTS = 4
+SERVE_THINK_S = 0.01     # inter-token host work of the decode tenant
+# Prefill bursts of 2048 x 2048 activations, long enough on the card that
+# a handoff almost always finds one resident (a burst's host-side draw of
+# its input is a few percent of it).
+PREFILL = dict(bursts=12, seq=2048, steps_per_burst=2048, gap_s=0.0)
+SERVE_COLD_CHUNKS = 4    # untagged arrays the decode tenant holds
+SERVE_TQ = 2
 
 
 def log(msg: str) -> None:
@@ -818,29 +869,37 @@ def check_pair(kind: str, names, stats: dict, drops: dict,
 
 
 def run_pair(name: str, budget: int, sched: Scheduler, workload,
-             solo_fault, differs) -> dict:
+             solo_fault, differs, use_pager: bool = False,
+             solo: tuple = None) -> dict:
     """A solo tenant, then two co-located tenants sharing one pool of
     ``budget``, each running a fresh ``workload()``. ``solo_fault(solo)``
     and ``differs(result, solo)`` name what is wrong with the solo result
     and how a co-located result differs from it (None where nothing is).
     Both tenants must be granted and dropped at least twice and evict and
-    prefetch, and peak device memory must stay within the card."""
+    prefetch, and peak device memory must stay within the card.
+    ``use_pager`` attaches the proactive pager to both co-located tenants
+    (with PAGER_ENV); ``solo`` = (result, wall) of an earlier solo run of
+    the same workload, which then is not run again."""
     torch.cuda.reset_peak_memory_stats()
-    solo = Tenant(f"{name}-solo", budget_bytes=budget,
-                  pool=vmem.PhysicalPool(budget))
-    try:
-        t0 = time.time()
-        solo_res = solo.run(workload())
-        solo_wall = time.time() - t0
-    finally:
-        solo.close()
+    if solo is None:
+        solo_t = Tenant(f"{name}-solo", budget_bytes=budget,
+                        pool=vmem.PhysicalPool(budget))
+        try:
+            t0 = time.time()
+            solo_res = solo_t.run(workload())
+            solo_wall = time.time() - t0
+        finally:
+            solo_t.close()
+    else:
+        solo_res, solo_wall = solo
     fault = solo_fault(solo_res)
     if fault:
         raise AssertionError(f"{name} solo: {fault}")
-    solo_peak = torch.cuda.max_memory_allocated()
+    solo_peak = torch.cuda.max_memory_allocated() if solo is None else None
     pool = vmem.PhysicalPool(budget)
-    tenants = [Tenant(f"{name}-t{i}", budget_bytes=budget, pool=pool)
-               for i in (1, 2)]
+    with mock.patch.dict(os.environ, PAGER_ENV if use_pager else {}):
+        tenants = [Tenant(f"{name}-t{i}", budget_bytes=budget, pool=pool,
+                          use_pager=use_pager) for i in (1, 2)]
     try:
         report = run_colocated({t: workload() for t in tenants},
                                timeout_s=900)
@@ -872,9 +931,9 @@ def run_pair(name: str, budget: int, sched: Scheduler, workload,
         f"{report.makespan_s:.2f} s -> makespan/(2 x solo) "
         f"{res['ratio']:.4f}; handoffs {h_n} mean "
         f"{res['handoff_mean_s']:.3f} s; scheduler DROP_LOCKs {n_drop}; "
-        f"drops per tenant {drops}; peak allocated {solo_peak / GiB:.2f} "
-        f"GiB solo, {peak / GiB:.2f} GiB over the pair, of "
-        f"{physical / GiB:.2f} GiB")
+        f"drops per tenant {drops}; peak allocated "
+        + (f"{solo_peak / GiB:.2f} GiB solo, " if solo is None else "")
+        + f"{peak / GiB:.2f} GiB over the pair, of {physical / GiB:.2f} GiB")
     return res
 
 
@@ -898,6 +957,342 @@ def run_kind(kind: str, chunks: int, budget: int, sched: Scheduler,
         f"checksum {r.checksum!r} != solo {s.checksum!r}")
     log(f"[{kind}] checksum {res['solo'].checksum!r} (solo = both tenants)")
     res.update(kind=kind, steps=steps, tq_s=tq, wss_bytes=wss)
+    return res
+
+
+# -- the proactive pager -----------------------------------------------------
+
+def handoffs_of(names) -> list:
+    """(seconds, bytes moved, clean share) of every handoff of ``names``
+    that evicted anything, from the event ring."""
+    return [(e.args["seconds"], e.args.get("moved", 0),
+             e.args.get("clean", 0) / e.args["n"])
+            for e in tev.ring().snapshot()
+            if e.kind == tev.HANDOFF and e.who in names and e.args
+            and e.args.get("n", 0) > 0]
+
+
+def trickled_bytes(names) -> int:
+    """Bytes the pagers of ``names`` moved to the host while computing."""
+    snap = telemetry.registry().snapshot().get(
+        "tpushare_writeback_bytes_total", {})
+    return int(sum(snap.get((n,), 0) for n in names))
+
+
+def handoff_summary(hs: list) -> dict:
+    secs = [h[0] for h in hs]
+    return {"handoffs": len(hs),
+            "median_s": statistics.median(secs) if secs else None,
+            "p99_s": percentile(secs, 99),
+            "moved_bytes": sum(h[1] for h in hs),
+            "clean_median": statistics.median(h[2] for h in hs)
+            if hs else None}
+
+
+def ab_workload(chunks: int, steps: int):
+    """The reference A/B's stepper (``bench.py`` run_pager_ab_bench,
+    ``tests/test_pager.py``) at card scale: ``chunks`` burner chunks made
+    on the card, every one dirtied once by a donated ``x * 1.0001`` (in
+    place), then one chunk a step re-dirtied, with AB_SLEEP_S of host time
+    between steps. Returns each chunk's f64 sum."""
+    def work(tenant: Tenant):
+        a = tenant.arena
+        step = vmem.vop(lambda x: x.mul_(1.0001), donate_argnums=(0,))
+        total = vmem.vop(lambda x: x.sum(dtype=torch.float64))
+        xs = [a.device_array((CHUNK_SIDE, CHUNK_SIDE), torch.float32,
+                             seed=1000 + i) for i in range(chunks)]
+        xs = [step(x) for x in xs]
+        for i in range(steps):
+            xs[i % chunks] = step(xs[i % chunks])
+            tenant.client.mark_activity()
+            time.sleep(AB_SLEEP_S)
+        sums = [float(total(x).numpy()) for x in xs]
+        for x in xs:
+            x.delete()
+        return sums
+
+    return work
+
+
+def run_ab_leg(leg: str, chunks: int, steps: int, budget: int,
+               use_pager: bool, first_touch: bool) -> dict:
+    env = dict(PAGER_ENV) if use_pager else {}
+    if first_touch:
+        env["TPUSHARE_PAGER_FIRST_TOUCH"] = "1"
+    pool = vmem.PhysicalPool(budget)
+    with mock.patch.dict(os.environ, env):
+        tenants = [Tenant(f"ab-{leg}-t{i}", budget_bytes=budget, pool=pool,
+                          use_pager=use_pager) for i in (1, 2)]
+    try:
+        report = run_colocated({t: ab_workload(chunks, steps)
+                                for t in tenants}, timeout_s=900)
+        names = [t.name for t in tenants]
+        hs = handoffs_of(names)
+        trickled = trickled_bytes(names)
+        factors = [t.pager.writeback_rate_factor for t in tenants
+                   if t.pager is not None]
+    finally:
+        for t in tenants:
+            t.close()
+    if not report.ok:
+        raise RuntimeError(f"A/B leg {leg} failed: {report.errors}")
+    out = handoff_summary(hs)
+    out.update(makespan_s=report.makespan_s, trickled_bytes=trickled,
+               trickled_bytes_per_s=trickled / report.makespan_s,
+               rate_factors=factors,
+               results=[report.results[n] for n in names])
+    return out
+
+
+def pager_ab(chunks: int, budget: int, sched: Scheduler, tq: int) -> dict:
+    """The handoff A/B at card scale: the same co-located pair of
+    ab_workload tenants with synchronous handoffs, with the proactive
+    pager, and with the pager in first-touch mode, at the burner pair's
+    working set and quantum. Every leg's results must equal the solo
+    run's bit for bit, and each leg must hand off at least twice."""
+    steps = max(3 * chunks, math.ceil(AB_QUANTA * tq / AB_SLEEP_S))
+    log(f"[ab] {chunks} chunks of {CHUNK_BYTES >> 20} MiB per tenant, "
+        f"{steps} steps of one chunk + {AB_SLEEP_S * 1e3:.0f} ms, TQ {tq} s;"
+        f" pager knobs {json.dumps(PAGER_ENV)}")
+    solo = Tenant("ab-solo", budget_bytes=budget,
+                  pool=vmem.PhysicalPool(budget))
+    try:
+        t0 = time.time()
+        want = solo.run(ab_workload(chunks, steps))
+        solo_s = time.time() - t0
+    finally:
+        solo.close()
+    legs = {}
+    for leg, use_pager, first_touch in (("sync", False, False),
+                                        ("proactive", True, False),
+                                        ("first_touch", True, True)):
+        r = run_ab_leg(leg, chunks, steps, budget, use_pager, first_touch)
+        same = all(res == want for res in r.pop("results"))
+        r.update(ratio=r["makespan_s"] / (2.0 * solo_s), equal_solo=same)
+        legs[leg] = r
+        log(f"[ab] {leg}: {r['handoffs']} handoffs, median "
+            f"{r['median_s']} s, p99 {r['p99_s']} s, moved at handoffs "
+            f"{r['moved_bytes'] / GiB:.3f} GiB, clean share median "
+            f"{r['clean_median']}, trickled {r['trickled_bytes'] / GiB:.3f} "
+            f"GiB at {r['trickled_bytes_per_s'] / 1e9:.3f} GB/s (rate "
+            f"factors at the end {r['rate_factors']}), makespan "
+            f"{r['makespan_s']:.2f} s = {r['ratio']:.4f} x 2 x solo "
+            f"({solo_s:.2f} s); results equal solo and the other legs bit "
+            f"for bit: {same}")
+        if not same:
+            raise AssertionError(f"A/B leg {leg}: results differ from solo")
+        if r["handoffs"] < 2:
+            raise AssertionError(f"A/B leg {leg} handed off "
+                                 f"{r['handoffs']} times")
+    return {"steps": steps, "solo_s": solo_s, "tq_s": tq,
+            "checksum": sum(want), "legs": legs}
+
+
+class PhaseSpy:
+    """Check-only instrumentation of one serving tenant's arena: which
+    arrays left the card under pressure (outside handoffs), in which
+    phase and with which tag, and, at each handoff, how many resident
+    arrays were tagged "act" and how many of those stayed in the hot
+    set."""
+
+    def __init__(self, arena):
+        self.pressure: list = []   # (phase, hint, nbytes)
+        self.handoffs: list = []   # (act arrays resident, act kept hot)
+        self._handoff_thread = None  # the thread inside a handoff
+        evict, handoff = arena._evict_batch, arena.sync_and_evict_all
+
+        def spy_evict(vas):
+            if threading.get_ident() != self._handoff_thread:
+                self.pressure += [(arena.phase, va._phase_hint, va.nbytes)
+                                  for va in vas if va._dev is not None]
+            return evict(vas)
+
+        def spy_handoff():
+            # The arrays tagged "act" before the handoff starts (a tag set
+            # while it runs may come before or after the hot set is made).
+            acts = {id(va) for va in list(arena._live)
+                    if va._dev is not None and va._phase_hint == "act"}
+            self._handoff_thread = threading.get_ident()
+            try:
+                handoff()
+            finally:
+                self._handoff_thread = None
+            kept = sum(1 for r in arena._hot if id(r()) in acts)
+            self.handoffs.append((len(acts), kept))
+
+        arena._evict_batch = spy_evict
+        arena.sync_and_evict_all = spy_handoff
+
+
+def serving_tenants(names: dict, pool_bytes: int, decode_budget: int):
+    """The decode and prefill tenants of ``names`` (role -> name), with the
+    pager and the wss policy, in one pool."""
+    pool = vmem.PhysicalPool(pool_bytes)
+    env = dict(PAGER_ENV, TPUSHARE_PAGER_POLICY="wss")
+    with mock.patch.dict(os.environ, env):
+        return {role: Tenant(name, pool=pool, use_pager=True,
+                             budget_bytes=decode_budget
+                             if role == "decode" else None)
+                for role, name in names.items()}
+
+
+def decode_with_cold_set():
+    """decode_workload, after the tenant made SERVE_COLD_CHUNKS untagged
+    burner chunks on the card (state it keeps but does not read while it
+    decodes): the decode tenant's budget holds its cache, weight and
+    state but not also all of these, so the cache's first page-ins must
+    evict something mid-decode."""
+    work = decode_workload(SERVE_TOKENS, **SERVE, think_s=SERVE_THINK_S,
+                           requests=SERVE_REQUESTS)
+
+    def run(tenant: Tenant):
+        cold = [tenant.arena.device_array((CHUNK_SIDE, CHUNK_SIDE),
+                                          torch.float32, seed=2000 + i)
+                for i in range(SERVE_COLD_CHUNKS)]
+        try:
+            return work(tenant)
+        finally:
+            for va in cold:
+                va.delete()
+
+    return run
+
+
+def run_serving(names: dict, pool_bytes: int, decode_budget: int) -> dict:
+    tenants = serving_tenants(names, pool_bytes, decode_budget)
+    spies = {role: PhaseSpy(t.arena) for role, t in tenants.items()}
+    works = {"decode": decode_with_cold_set(),
+             "prefill": prefill_workload(**PREFILL)}
+    if len(tenants) == 2:
+        # Prefill requests arrive once the decode tenant serves: its model
+        # takes longer to build on the host than the prefill runs.
+        prefill, dec = works["prefill"], tenants["decode"].arena
+
+        def after_decode_starts(tenant: Tenant):
+            deadline = time.time() + 300
+            while dec.phase != "decode":
+                if time.time() > deadline:
+                    raise TimeoutError("the decode tenant never decoded")
+                time.sleep(0.01)
+            return prefill(tenant)
+
+        works["prefill"] = after_decode_starts
+    try:
+        report = run_colocated({t: works[role]
+                                for role, t in tenants.items()},
+                               timeout_s=600)
+        stats = {role: t.telemetry_snapshot()
+                 for role, t in tenants.items()}
+        drops = {role: int(t.client._m["drops"].value)
+                 for role, t in tenants.items()}
+        waits = gate_wait_samples({t.name: role
+                                   for role, t in tenants.items()},
+                                  tev.ring().snapshot())
+    finally:
+        for t in tenants.values():
+            t.close()
+    if not report.ok:
+        raise RuntimeError(f"serving tenants failed: {report.errors}")
+    return {"results": {role: report.results[t.name]
+                        for role, t in tenants.items()},
+            "stats": stats, "drops": drops, "waits": waits,
+            "spies": spies, "makespan_s": report.makespan_s}
+
+
+def serving_phases(sched: Scheduler) -> dict:
+    """The serving phase plane on the card: a decode_workload tenant (the
+    mock decoder at the LM's cache widths) and a prefill_workload tenant,
+    each alone, then as a pair, with the pager and the wss policy. Both
+    checksums must equal solo; mid-decode pressure must evict no
+    KV-tagged array; every handoff must drop the prefill tenant's "act"
+    arrays from its hot set, which the grant then never prefetches."""
+    release_host_cache()
+    sched.set_tq(SERVE_TQ)
+    d = SERVE["d_model"]
+    kv = 2 * SERVE["layers"] * SERVE["batch"] * SERVE["max_len"] * d * 4
+    state = (d * d + 2 * SERVE["batch"] * d) * 4
+    # Room for the cache, weight and state, and half the cold set.
+    decode_budget = kv + state + SERVE_COLD_CHUNKS * CHUNK_BYTES // 2
+    pool_bytes = decode_budget + 8 * GiB
+    log(f"[serve] decode: {SERVE}, {SERVE_TOKENS} tokens in "
+        f"{SERVE_REQUESTS} requests, {SERVE_THINK_S * 1e3:.0f} ms between "
+        f"tokens, KV {kv / GiB:.2f} GiB tagged 'kv', cold set "
+        f"{SERVE_COLD_CHUNKS} x {CHUNK_BYTES >> 20} MiB untagged, budget "
+        f"{decode_budget / GiB:.3f} GiB; prefill: {PREFILL}; TQ {SERVE_TQ} "
+        f"s; pager knobs {json.dumps(PAGER_ENV)}, policy wss")
+    solo = {}
+    for role in ("decode", "prefill"):
+        t0 = time.time()
+        out = run_serving({role: f"serve-solo-{role}"}, pool_bytes,
+                          decode_budget)
+        solo[role] = (out["results"][role], time.time() - t0)
+    t0 = time.time()
+    pair = run_serving({"decode": "serve-dec", "prefill": "serve-pre"},
+                       pool_bytes, decode_budget)
+    wall = time.time() - t0
+    res = {"solo_s": {r: s for r, (_, s) in solo.items()},
+           "makespan_s": pair["makespan_s"], "wall_s": wall}
+    for role in ("decode", "prefill"):
+        got = pair["results"][role]["checksum"]
+        want = solo[role][0]["checksum"]
+        if got != want:
+            raise AssertionError(f"serving {role} checksum {got!r} != solo "
+                                 f"{want!r}")
+        res[f"{role}_checksum"] = got
+    dec_spy, pre_spy = pair["spies"]["decode"], pair["spies"]["prefill"]
+    st = pair["stats"]
+    pressure = [p for p in dec_spy.pressure if p[0] == "decode"]
+    kv_out = [p for p in pressure if p[1] == "kv"]
+    counted = st["decode"]["evictions"] - st["decode"]["handoff_evicts"]
+    acts = sum(a for a, _ in pre_spy.handoffs)
+    acts_kept = sum(k for _, k in pre_spy.handoffs)
+    wait = pair["waits"].get("decode", [])
+    res.update(
+        decode_pressure_evictions=len(pressure),
+        decode_pressure_bytes=sum(p[2] for p in pressure),
+        decode_kv_pressure_evictions=len(kv_out),
+        decode_counter_pressure_evictions=counted,
+        decode_page_outs=st["decode"]["page_out"],
+        prefill_handoffs=len(pre_spy.handoffs), prefill_act_evicted=acts,
+        prefill_act_kept_hot=acts_kept,
+        prefill_prefetches=st["prefill"]["prefetches"],
+        drops=pair["drops"], gate_wait_n=len(wait),
+        handoffs={role: len(handoffs_of([name])) for role, name in (
+            ("decode", "serve-dec"), ("prefill", "serve-pre"))},
+        gate_wait_p50_s=percentile(wait, 50),
+        gate_wait_p99_s=percentile(wait, 99),
+        token_lat_p50_s=percentile(
+            pair["results"]["decode"]["token_lat_s"], 50),
+        token_lat_p99_s=percentile(
+            pair["results"]["decode"]["token_lat_s"], 99))
+    log(f"[serve] solo decode {res['solo_s']['decode']:.2f} s, prefill "
+        f"{res['solo_s']['prefill']:.2f} s; pair makespan "
+        f"{pair['makespan_s']:.2f} s, drops {pair['drops']}, handoffs "
+        f"{res['handoffs']}; both checksums"
+        f" equal solo ({res['decode_checksum']!r}, "
+        f"{res['prefill_checksum']!r})")
+    log(f"[serve] decode pressure: {len(pressure)} arrays "
+        f"({res['decode_pressure_bytes'] / GiB:.3f} GiB) evicted mid-decode"
+        f" outside handoffs (arena counters: {counted}), {len(kv_out)} of "
+        f"them tagged kv; decode page-outs {st['decode']['page_out']}; "
+        f"prefill: {len(pre_spy.handoffs)} handoffs evicted {acts} 'act' "
+        f"arrays, {acts_kept} kept in the hot set (per handoff "
+        f"{pre_spy.handoffs}), prefetches "
+        f"{st['prefill']['prefetches']}; decode gate wait p50 "
+        f"{res['gate_wait_p50_s']} s, p99 {res['gate_wait_p99_s']} s over "
+        f"{len(wait)} waits; token latency p50 {res['token_lat_p50_s']} s, "
+        f"p99 {res['token_lat_p99_s']} s")
+    if not pressure or counted != len(dec_spy.pressure):
+        raise AssertionError(f"no decode pressure to read: spy "
+                             f"{len(dec_spy.pressure)}, counters {counted}")
+    if kv_out:
+        raise AssertionError(f"{len(kv_out)} KV-tagged arrays evicted "
+                             "under decode pressure")
+    if acts == 0 or acts_kept:
+        raise AssertionError(f"'act' arrays at handoffs: {acts} evicted, "
+                             f"{acts_kept} kept hot")
+    if min(res["handoffs"].values()) < 2:
+        raise AssertionError(f"serving handoffs {res['handoffs']}")
     return res
 
 
@@ -1170,6 +1565,34 @@ def run_lm(budget: int, sched: Scheduler, requests: int, tq: int) -> dict:
     return res
 
 
+def run_lm_pager(budget: int, sched: Scheduler, requests: int, tq: int,
+                 sync: dict) -> dict:
+    """The LM serving pair once more, with the proactive pager on both
+    tenants, against the sync pair's solo run: every scoring checksum and
+    decoded token must equal it. Its parameters go clean once trickled;
+    its cache is rewritten every token."""
+    log(f"[lm pager] {requests} requests per tenant, TQ {tq} s, pager "
+        f"knobs {json.dumps(PAGER_ENV)}")
+    res = run_pair("lmpg", budget, sched, lambda: lm_workload_of(requests),
+                   lambda s: None if s.passed else "checksums not finite",
+                   lm_differs, use_pager=True,
+                   solo=(sync["solo"], sync["solo_s"]))
+    names = ["lmpg-t1", "lmpg-t2"]
+    res["pager"] = handoff_summary(handoffs_of(names))
+    res["sync"] = handoff_summary(handoffs_of(["lm-t1", "lm-t2"]))
+    res["trickled_bytes"] = trickled_bytes(names)
+    pg, sy = res["pager"], res["sync"]
+    log(f"[lm pager] handoffs {pg['handoffs']}, median {pg['median_s']} s "
+        f"(sync pair {sy['median_s']} s), p99 {pg['p99_s']} s (sync "
+        f"{sy['p99_s']} s), moved at handoffs {pg['moved_bytes'] / GiB:.2f}"
+        f" GiB (sync {sy['moved_bytes'] / GiB:.2f} GiB), clean share "
+        f"median {pg['clean_median']} (sync {sy['clean_median']}), "
+        f"trickled {res['trickled_bytes'] / GiB:.2f} GiB; every checksum "
+        f"and decoded token equal solo and the sync pair")
+    res.update(requests=requests, tq_s=tq)
+    return res
+
+
 def lm_phases(phases: Phases, budget: int, physical: int,
               sched: Scheduler) -> dict:
     """The LM's phases: the full-width inference check, the pair's sizing,
@@ -1197,8 +1620,17 @@ def lm_phases(phases: Phases, budget: int, physical: int,
     if launches != want:
         raise AssertionError(f"K3 launched {launches} times on the LM main "
                              f"path, not {LM.depth} x {3 * requests}")
+    reset_counts(flash_attention)
+    pg = phases.run("main path lm pager", run_lm_pager, budget, sched,
+                    requests, tq, res)
+    pg_launches = flash_attention.launches.value
+    res["pager_wgmma_launches"] = flash_attention.route_launches[
+        WGMMA].value
+    if pg_launches != LM.depth * 2 * requests:
+        raise AssertionError(f"K3 launched {pg_launches} times on the LM "
+                             f"pager path, not {LM.depth} x {2 * requests}")
     res.update(launches=launches, cycle_s=probe["cycle_s"], check=check,
-               **sizes)
+               pager_pair=pg, pager_launches=pg_launches, **sizes)
     return res
 
 
@@ -1519,7 +1951,9 @@ def main() -> int:
         results["add"] = phases.run("main path add", run_kind, "add",
                                     chunks, budget, sched, add_step, tq)
         mix_launches = fused_mix.launches.value
+        ab = phases.run("pager a/b", pager_ab, chunks, budget, sched, tq)
         lm = lm_phases(phases, budget, physical, sched)
+        serve = phases.run("serving phases", serving_phases, sched)
         train = train_phases(phases, budget, physical, sched)
     finally:
         sched.stop()
@@ -1528,14 +1962,17 @@ def main() -> int:
         raise AssertionError(f"kernel launches on the main path: matmul "
                              f"{mm_launches}, mix {mix_launches}")
     k3_launches, k4_launches, k5_launches = train["launches"]
-    k3_wgmma = lm["wgmma_launches"] + train["wgmma_launches"][0]
+    lm_launches = lm["launches"] + lm["pager_launches"]
+    k3_wgmma = (lm["wgmma_launches"] + lm["pager_wgmma_launches"]
+                + train["wgmma_launches"][0])
     k4_wgmma, k5_wgmma = train["wgmma_launches"][1:]
     log(f"main-path launches: tiled_matmul {mm_launches}, fused_mix "
         f"{mix_launches}, flash_attention {lm['launches']} (serving) + "
+        f"{lm['pager_launches']} (serving, pager) + "
         f"{k3_launches} (training), {k3_wgmma} of them by the wgmma route, "
         f"flash_backward_dq {k4_launches}, {k4_wgmma} by the wgmma route, "
         f"flash_backward_dkv {k5_launches}, {k5_wgmma} by the wgmma route")
-    if k3_wgmma != lm["launches"] + k3_launches or \
+    if k3_wgmma != lm_launches + k3_launches or \
             k4_wgmma != k4_launches or k5_wgmma != k5_launches:
         raise AssertionError("a main-path launch of K3, K4 or K5 did not "
                              "take the wgmma route")
@@ -1558,6 +1995,12 @@ def main() -> int:
             "handoff_mean_s", "drops", "wss_bytes", "pinned_bytes")},
         "lm_peak_allocated_gib": lm["peak_bytes"] / GiB,
         "lm_check": lm["check"],
+        "pager_knobs": PAGER_ENV,
+        "pager_ab": ab,
+        "lm_pager": {k: lm["pager_pair"][k] for k in (
+            "makespan_s", "ratio", "handoffs", "handoff_mean_s", "drops",
+            "pager", "sync", "trickled_bytes", "peak_bytes")},
+        "serving_phases": serve,
         "train": {k: train[k] for k in (
             "steps", "tq_s", "cycle_s", "solo_s", "makespan_s", "ratio",
             "step_s", "losses", "handoffs", "handoff_mean_s", "drops",
@@ -1577,7 +2020,7 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:120",
-             launches=lm["launches"] + k3_launches, **att_entry),
+             launches=lm_launches + k3_launches, **att_entry),
         dict(name="flash_backward_dq", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:267",

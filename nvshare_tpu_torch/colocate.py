@@ -22,9 +22,9 @@ import torch
 
 from nvshare_tpu_torch import interpose, vmem
 from nvshare_tpu_torch.device import DeviceLike
-from nvshare_tpu_torch.pager import client_callbacks
+from nvshare_tpu_torch.pager import client_callbacks, maybe_attach_pager
 from nvshare_tpu_torch.runtime.client import PurePythonClient
-from nvshare_tpu_torch.utils import env_bool, get_logger
+from nvshare_tpu_torch.utils import get_logger
 
 log = get_logger("colocate")
 
@@ -36,27 +36,39 @@ class Tenant:
     ``budget_bytes`` is this tenant's view of capacity; with N tenants
     oversubscribing, each still sees the whole budget. ``pool`` models the
     one card's physical memory shared by every co-located tenant. ``name``
-    doubles as the telemetry label. The proactive pager (``use_pager``,
-    ``$TPUSHARE_PAGER``) and QoS declarations (``qos``) are not ported:
-    asking for either raises.
+    doubles as the telemetry label. ``use_pager`` attaches the proactive
+    pager (default: ``$TPUSHARE_PAGER``). QoS declarations (``qos``) are
+    not ported: asking for one raises.
     """
 
     def __init__(self, name: str, budget_bytes: Optional[int] = None,
                  device: DeviceLike = None,
                  pool: Optional[vmem.PhysicalPool] = None,
                  use_pager: Optional[bool] = None, qos=None):
-        if use_pager if use_pager is not None else env_bool("TPUSHARE_PAGER"):
-            raise NotImplementedError(
-                "the proactive pager is not implemented in "
-                "nvshare_tpu_torch yet; unset TPUSHARE_PAGER")
         self.arena = vmem.VirtualHBM(device=device,
                                      budget_bytes=budget_bytes,
                                      pool=pool, name=name)
         # The arena may have deduped a reused name (job -> job-2); the
         # tenant AND its client carry the arena's final label.
         self.name = self.arena.name
-        self.client = PurePythonClient(job_name=self.arena.name, qos=qos,
-                                       **client_callbacks(self.arena))
+        # The same wiring site as interpose.client(): the pager (if
+        # enabled) overrides the handoff callbacks, and its threads start
+        # only at bind_client, once the client below exists.
+        self.pager = maybe_attach_pager(self.arena, enabled=use_pager)
+        self.client = PurePythonClient(
+            job_name=self.arena.name, qos=qos,
+            **client_callbacks(self.arena, self.pager))
+        if self.pager is not None:
+            self.pager.bind_client(self.client)
+
+    def set_phase(self, phase: Optional[str]) -> None:
+        """Declare this tenant's serving phase (``"idle"``/``"prefill"``/
+        ``"decode"``/None) on both planes: the arena's KV-residency
+        eviction order and, when ``$TPUSHARE_PHASE=1`` armed the wire
+        capability, the scheduler's PHASE_INFO advisory. None is idle on
+        the wire."""
+        self.arena.set_phase(phase)
+        self.client.set_phase("idle" if phase is None else phase)
 
     def run(self, workload: Callable[["Tenant"], object]):
         """Run ``workload(self)``; every managed op inside gates through

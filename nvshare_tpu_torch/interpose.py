@@ -31,10 +31,20 @@ def client():
     with _lock:
         if _client is None:
             from nvshare_tpu_torch import vmem
-            from nvshare_tpu_torch.pager import client_callbacks
+            from nvshare_tpu_torch.pager import (
+                client_callbacks,
+                maybe_attach_pager,
+            )
             from nvshare_tpu_torch.runtime.client import make_client
 
-            _client = make_client(**client_callbacks(vmem.arena()))
+            a = vmem.arena()
+            # $TPUSHARE_PAGER=1: the proactive pager takes over the
+            # handoff policy; its threads start only at bind_client, after
+            # registration.
+            pager = maybe_attach_pager(a)
+            _client = make_client(**client_callbacks(a, pager))
+            if pager is not None:
+                pager.bind_client(_client)
         return _client
 
 

@@ -1,18 +1,29 @@
-"""Handoff wiring between an arena and a client runtime.
+"""Proactive pager: background writeback + scheduler-coordinated on-deck
+prefetch, the port of ``nvshare_tpu/pager``.
 
-Only :func:`client_callbacks` is ported: the arena's four synchronous
-hooks, the JAX package's pager-less path (``pager/engine.py``). The
-proactive pager (async writeback, on-deck prefetch) comes later.
+Public surface:
+
+  * :class:`Pager` / :func:`maybe_attach_pager` — the engine and the
+    env-gated ($TPUSHARE_PAGER=1) wiring helper;
+  * :func:`client_callbacks` — the callback set a client runtime is built
+    with, the pager's or the arena's synchronous hooks;
+  * :func:`pager_enabled` / :func:`first_touch_enabled` — the gates the
+    wiring layers consult;
+  * :mod:`~nvshare_tpu_torch.pager.policy` — the ordering policies
+    ($TPUSHARE_PAGER_POLICY=lru|lfu|wss).
 """
 
-
-def client_callbacks(arena) -> dict:
-    """The callback set a client runtime is built with — the one wiring
-    site shared by :func:`nvshare_tpu_torch.interpose.client` and
-    :class:`nvshare_tpu_torch.colocate.Tenant`."""
-    return dict(
-        sync_and_evict=arena.sync_and_evict_all,
-        prefetch=arena.prefetch_hot,
-        busy_probe=arena.busy_probe,
-        timed_sync_ms=arena.timed_sync_ms,
-    )
+from nvshare_tpu_torch.pager.engine import (  # noqa: F401
+    Pager,
+    client_callbacks,
+    first_touch_enabled,
+    maybe_attach_pager,
+    pager_enabled,
+)
+from nvshare_tpu_torch.pager.policy import (  # noqa: F401
+    LFUPolicy,
+    LRUPolicy,
+    PagerPolicy,
+    WSSPolicy,
+    make_policy,
+)

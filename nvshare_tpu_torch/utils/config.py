@@ -83,3 +83,14 @@ def refuse_env(name: str, feature: str, switch: bool = False) -> None:
             f"${name}={os.environ[name]!r} asks for {feature}, which "
             "nvshare_tpu_torch does not implement yet; unset it or use "
             "the JAX package")
+
+
+def ceil_rank_p99(samples):
+    """Interpolation-free ceil-rank p99 over a non-empty sequence: with
+    fewer than 100 samples this is the max. The JAX package's definition,
+    so the two packages' tails mean the same thing."""
+    s = sorted(samples)
+    if not s:
+        raise ValueError("p99 of an empty sample set")
+    rank = max(0, -(-99 * len(s) // 100) - 1)
+    return s[rank]

@@ -1,6 +1,6 @@
 """Virtual device memory — software paging for CUDA device memory.
 
-The port of ``nvshare_tpu/vmem.py`` on its synchronous, whole-array paths:
+The port of ``nvshare_tpu/vmem.py``:
 
   * every managed array (:class:`VArray`) has a host shadow (pinned host
     memory on a CUDA arena, a plain CPU tensor on a CPU arena) and an
@@ -15,7 +15,14 @@ The port of ``nvshare_tpu/vmem.py`` on its synchronous, whole-array paths:
     may be nested dicts, lists and tuples (a parameter tree, a KV cache);
   * on lock hand-off the whole resident set is fenced and evicted
     (DROP_LOCK) and bulk-prefetched back on LOCK_OK;
-  * :func:`mem_info` reports the virtual capacity, not the physical one.
+  * :func:`mem_info` reports the virtual capacity, not the physical one;
+  * a proactive pager (:mod:`nvshare_tpu_torch.pager`) may take over the
+    policy half of the handoff hooks: background writeback, on-deck
+    prefetch and, with ``$TPUSHARE_PAGER_FIRST_TOUCH=1``, map-on-fault
+    page-in and chunk-granular dirty tracking;
+  * serving-phase hints: while the tenant decodes, arrays tagged ``"kv"``
+    are evicted last under pressure, and arrays tagged ``"act"`` leave the
+    hot set at the handoff.
 
 Differences from the JAX arena, all forced by eager PyTorch:
 
@@ -29,11 +36,15 @@ Differences from the JAX arena, all forced by eager PyTorch:
     donate.
   * Output bytes are reserved from shapes by running the function once on
     ``meta`` tensors (PyTorch has no ``eval_shape``).
-  * Page-outs are pipelined: every device-to-host copy into a fresh pinned
-    shadow is issued, then one event is synchronized.
-
-The proactive pager, first-touch paging and serving-phase residency hints
-are not ported yet: ``$TPUSHARE_PAGER_FIRST_TOUCH=1`` raises.
+  * Page-outs are pipelined: every device-to-host copy into the array's
+    pinned shadow (allocated on its first page-out) is issued, then one
+    event is synchronized.
+  * Buffers are not immutable: a donated operand may be updated in place
+    on the device. Each output therefore carries the event of the
+    submission that produced it (``VArray._ready``), and the pager's side
+    streams wait on it before they copy; what a side stream copies is
+    published only if the array is still the same live, dirty one once
+    the copy has finished.
 """
 
 from __future__ import annotations
@@ -51,7 +62,6 @@ from nvshare_tpu_torch import telemetry
 from nvshare_tpu_torch.device import DeviceLike, generator, resolve_device
 from nvshare_tpu_torch.telemetry import events as tev
 from nvshare_tpu_torch.utils import env_bool, env_bytes, env_int, get_logger
-from nvshare_tpu_torch.utils.config import refuse_env
 
 log = get_logger("vmem")
 
@@ -60,6 +70,14 @@ def _debug_counters() -> bool:
     """$TPUSHARE_DEBUG_COUNTERS=1 arms the counter-invariant assertions
     on the paging paths (read per-call so tests can toggle it)."""
     return env_bool("TPUSHARE_DEBUG_COUNTERS")
+
+
+def first_touch_enabled() -> bool:
+    """$TPUSHARE_PAGER_FIRST_TOUCH=1 switches arenas (and the pager, which
+    rides the arena's flag) to first-touch residency: map-on-fault page-in
+    and chunk-granular dirty bits. The single definition —
+    :mod:`nvshare_tpu_torch.pager` re-exports it."""
+    return env_bool("TPUSHARE_PAGER_FIRST_TOUCH", False)
 
 
 #: compat key in the legacy ``stats`` view -> registry counter metadata
@@ -78,6 +96,8 @@ _STAT_METRICS = {
     "oom_refusals": ("tpushare_oom_refusals_total",
                      "strict-oversubscription allocation refusals"),
 }
+
+_DEFAULT_PAGER_CHUNK = 4 << 20  # first-touch dirty-bit granularity
 
 _arena_names = threading.Lock()  # guards the name bookkeeping
 # Labels ever handed out. Process-lifetime on purpose: a NEW arena
@@ -100,11 +120,15 @@ class TpuShareOOM(MemoryError):
     enabled and a process exceeds the virtual capacity by itself."""
 
 
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def _nbytes(shape, dtype: torch.dtype) -> int:
     n = 1
     for d in shape:
         n *= int(d)
-    return n * torch.empty((), dtype=dtype).element_size()
+    return n * _itemsize(dtype)
 
 
 def _torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -139,7 +163,8 @@ class VArray:
     """
 
     __slots__ = ("_arena", "shape", "dtype", "nbytes", "_dev", "_host",
-                 "_dirty", "_last_touch", "_pin", "_acct", "__weakref__")
+                 "_dirty", "_dirty_chunks", "_last_touch", "_pin", "_acct",
+                 "_phase_hint", "_ready", "_in_ev", "__weakref__")
 
     def __init__(self, arena: "VirtualHBM", host: Optional[torch.Tensor],
                  dev: Optional[torch.Tensor], dirty: bool):
@@ -151,7 +176,22 @@ class VArray:
         self._host = host
         self._dev = dev
         self._dirty = dirty          # device copy newer than host shadow
+        # First-touch mode only: WHICH chunks differ from the host shadow
+        # (None = whole-array dirty tracking). Set by VirtualHBM._adopt and
+        # drained chunk by chunk by the pager's writeback streams.
+        self._dirty_chunks: Optional[set] = None
         self._last_touch = 0
+        # Serving-phase residency hint (None = untagged): "kv" is evicted
+        # last while the tenant decodes, "act" leaves the hot set at the
+        # handoff (see VirtualHBM.set_phase).
+        self._phase_hint: Optional[str] = None
+        # CUDA event of the submission that produced the device copy (None
+        # for a copy paged in from the host shadow): the pager's readiness
+        # test, and what a side stream waits on before it reads the copy.
+        self._ready = None
+        # CUDA event of the last page-in from the host shadow: a side
+        # stream writing into the shadow waits on it.
+        self._in_ev = None
         self._pin = 0                # >0 while an op is using the device copy
         # Shared with the GC finalizer (which cannot touch the dead VArray):
         # tracks whether this array still occupies device residency.
@@ -160,6 +200,18 @@ class VArray:
     @property
     def resident(self) -> bool:
         return self._dev is not None
+
+    @property
+    def phase_hint(self) -> Optional[str]:
+        """The serving-phase residency tag (``None``/``"kv"``/``"act"``)."""
+        return self._phase_hint
+
+    @phase_hint.setter
+    def phase_hint(self, hint: Optional[str]) -> None:
+        if hint not in (None, "kv", "act"):
+            raise ValueError(
+                f"phase_hint must be None, 'kv' or 'act' (got {hint!r})")
+        self._phase_hint = hint
 
     def pinned(self):
         """Context manager: page in and hold a pin so LRU pressure cannot
@@ -170,6 +222,7 @@ class VArray:
     def host(self) -> torch.Tensor:
         """The host shadow holding the current value (fences the device if
         dirty). Shared, not copied: do not write into it."""
+        self._arena._raise_pager_error()
         with self._arena._lock:
             if self._dev is not None and self._dirty:
                 self._arena._writeback(self)
@@ -215,8 +268,6 @@ class VirtualHBM:
                  budget_bytes: Optional[int] = None,
                  pool: Optional[PhysicalPool] = None,
                  name: Optional[str] = None):
-        refuse_env("TPUSHARE_PAGER_FIRST_TOUCH", "first-touch paging",
-                   switch=True)
         telemetry.refuse_exporters()
         self.device = resolve_device(device)
         if name is None:
@@ -249,6 +300,14 @@ class VirtualHBM:
         self.budget = int(budget_bytes)
         self.single_oversub_ok = env_bool("TPUSHARE_ENABLE_SINGLE_OVERSUB",
                                           True)
+        # First-touch paging ($TPUSHARE_PAGER_FIRST_TOUCH=1): residency is
+        # map-on-fault and dirtiness is tracked per chunk of
+        # $TPUSHARE_PAGER_CHUNK_BYTES, which the pager's streams drain
+        # while the tenant computes. Off, _dirty_chunks stays None.
+        self.first_touch = first_touch_enabled()
+        self.chunk_bytes = max(
+            1 << 16, env_bytes("TPUSHARE_PAGER_CHUNK_BYTES",
+                               _DEFAULT_PAGER_CHUNK))
 
         self._live: "weakref.WeakSet[VArray]" = weakref.WeakSet()
         self._clock = 0
@@ -278,6 +337,14 @@ class VirtualHBM:
             "handoff evicted it (1.0 = the async writeback trickle fully "
             "converged; ~0 on the synchronous path)",
             ["client"]).labels(client=self.name)
+        # Proactive pager (nvshare_tpu_torch.pager): when attached it takes
+        # over the POLICY half of the handoff hooks (prefetch_hot delegates
+        # to its plan, _touch feeds its ordering policy); the MECHANISM
+        # (writeback, evict, ensure and their accounting) stays here.
+        self.pager = None
+        # Tenant serving phase (None until set_phase): only consulted when
+        # set, so phase-less tenants keep every eviction order unchanged.
+        self.phase: Optional[str] = None
 
         win = env_int("TPUSHARE_WINDOW_MAX", _WINDOW_MAX)
         self._window_max = max(win, _WINDOW_MIN)
@@ -322,6 +389,7 @@ class VirtualHBM:
         shape = tuple(int(d) for d in shape)
         nbytes = _nbytes(shape, dtype)
         interpose.gate()
+        self._raise_pager_error()
         with self._lock:
             self._busy_depth += 1
         try:
@@ -337,7 +405,7 @@ class VirtualHBM:
                                         dtype=dtype, device=self.device)
                 va = VArray(self, None, arr, dirty=True)
                 self._adopt(va)
-                self._record_pending()
+                va._ready = self._record_pending()
             self.after_submit()
             return va
         finally:
@@ -345,6 +413,13 @@ class VirtualHBM:
                 self._busy_depth -= 1
 
     def _adopt(self, va: VArray) -> None:
+        if self.first_touch and va._dirty:
+            # A new device value differs from its (not yet made) host
+            # shadow everywhere: every chunk starts dirty. This is the only
+            # clean->dirty site — a donated output is a new VArray even
+            # where it sits on its operand's storage, so no clean chunk of
+            # the operand carries over.
+            va._dirty_chunks = set(range(self._chunk_count(va)))
         self._live.add(va)
         self.tracked_bytes += va.nbytes
         if va._dev is not None:
@@ -402,6 +477,12 @@ class VirtualHBM:
         """Retire this arena: fence pending work, discard every live
         array (freeing its device residency), and detach from the
         physical pool. Idempotent."""
+        # Stop the proactive pager FIRST: its threads take this arena's
+        # lock, and retiring the arena under a live trickle would race the
+        # discard loop below.
+        pager = self.pager
+        if pager is not None:
+            pager.close()
         # Fence BEFORE taking the (possibly pool-shared) lock, so a slow
         # device stalls only this tenant.
         self.fence()
@@ -419,6 +500,32 @@ class VirtualHBM:
 
     # -- residency --------------------------------------------------------
 
+    def set_phase(self, phase: Optional[str]) -> None:
+        """Declare the tenant's serving phase (``"idle"``/``"prefill"``/
+        ``"decode"``/None). While decoding, KV-class arrays (tagged or
+        detected by the wss policy) are evicted last under LRU pressure:
+        the cache is read by every token, so paging it out mid-decode
+        costs a page-in on the next one."""
+        if phase not in (None, "idle", "prefill", "decode"):
+            raise ValueError(f"unknown phase {phase!r}")
+        self.phase = phase
+
+    def _kv_protected(self, va: VArray) -> bool:
+        """Is ``va`` KV-cache-class for eviction ordering right now? Only
+        mid-decode: a ``phase_hint="kv"`` tag, or the wss policy's
+        cross-quantum inter-touch detection (lock held)."""
+        if self.phase != "decode":
+            return False
+        if va._phase_hint == "kv":
+            return True
+        pager = self.pager
+        if pager is not None:
+            try:
+                return bool(pager.policy.kv_resident(va))
+            except Exception:  # policy bugs must not break eviction
+                return False
+        return False
+
     def _touch(self, va: VArray) -> None:
         # Pooled arenas share one recency clock so cross-tenant LRU is a
         # meaningful global ordering.
@@ -428,12 +535,60 @@ class VirtualHBM:
         else:
             self._clock += 1
             va._last_touch = self._clock
+        pager = self.pager
+        if pager is not None:
+            try:
+                pager.policy.on_touch(va)
+            except Exception:  # policy bugs must not break paging
+                log.debug("pager policy on_touch failed", exc_info=True)
+
+    def _raise_pager_error(self) -> None:
+        """Fail the tenant's thread with the pager's error: a device error
+        in a writeback or prefetch stops the pager, and the tenant must not
+        carry on as if paging still ran."""
+        pager = self.pager
+        if pager is not None and pager.error is not None:
+            raise RuntimeError(
+                f"the proactive pager of {self.name} failed") from pager.error
+
+    # -- first-touch chunk geometry (lock held for all of these) ----------
+
+    def _chunk_elems(self, va: VArray) -> int:
+        """Elements per dirty-bit chunk (chunk_bytes rounded down to the
+        dtype's itemsize; at least one element)."""
+        return max(1, self.chunk_bytes // _itemsize(va.dtype))
+
+    def _chunk_count(self, va: VArray) -> int:
+        total = va.nbytes // _itemsize(va.dtype)
+        return max(0, -(-total // self._chunk_elems(va)))
+
+    def _chunk_bounds(self, va: VArray, chunk: int) -> tuple:
+        """Flat element range [lo, hi) of ``chunk``."""
+        total = va.nbytes // _itemsize(va.dtype)
+        per = self._chunk_elems(va)
+        lo = chunk * per
+        return lo, min(total, lo + per)
+
+    def _host_flat_writable(self, va: VArray) -> torch.Tensor:
+        """A flat view of the host shadow for in-place chunk publication,
+        made on first use for a device-born array (every chunk is dirty
+        then, so a partial write never exposes garbage). The port's
+        shadows are its own contiguous tensors, always writable."""
+        if va._host is None:
+            va._host = self._new_host(va.shape, va.dtype)
+        return va._host.view(-1)
 
     def _writeback_batch(self, vas: Sequence[VArray]) -> None:
-        """device -> host shadows, pipelined: issue every copy into a fresh
-        shadow first, then synchronize once — the handoff-latency hot path.
-        The copies run on the current stream after the fence the callers
-        take, so they follow the tenant's work."""
+        """device -> host shadows, pipelined: issue every copy first, then
+        synchronize once — the handoff-latency hot path. The copies run on
+        the current stream after the fence the callers take, so they follow
+        the tenant's work, and after the pager's side streams.
+
+        A dirty array moves whole, into its shadow if the pager's streams
+        already made one (first-touch mode), else into a new one. The JAX
+        arena does the same on every platform with a pinned-host memory
+        space (its chunk-residual branch needs a platform without one), so
+        under first-touch the two packages move the same bytes."""
         dirty = [va for va in vas if va._dev is not None and va._dirty]
         if not dirty:
             return
@@ -443,8 +598,14 @@ class VirtualHBM:
                 assert id(va) not in seen, \
                     f"{va!r} listed twice in one writeback batch"
                 seen.add(id(va))
+        if self.cuda and self.pager is not None:
+            cur = torch.cuda.current_stream(self.device)
+            for s in self.pager.streams:
+                cur.wait_stream(s)
         for va in dirty:
-            host = self._new_host(va.shape, va.dtype)
+            host = va._host
+            if host is None:
+                host = self._new_host(va.shape, va.dtype)
             host.copy_(va._dev, non_blocking=self.cuda)
             va._host = host
         if self.cuda:
@@ -458,6 +619,7 @@ class VirtualHBM:
                 assert va._dirty, \
                     f"{va!r} went clean mid-writeback (double-count risk)"
             va._dirty = False
+            va._dirty_chunks = None
         self._m["page_out"].inc(len(dirty))
         self._m_bytes_out.inc(sum(va.nbytes for va in dirty))
 
@@ -488,10 +650,13 @@ class VirtualHBM:
 
     def _evict_lru_until(self, needed: int) -> None:
         if self.resident_bytes + needed > self.budget:
+            # Mid-decode, KV-class arrays sort AFTER everything else; when
+            # only they remain they do evict (no OOM from protection).
+            # Phase-less tenants keep the exact LRU order.
             cands = sorted(
                 (va for va in self._live
                  if va._dev is not None and va._pin == 0),
-                key=lambda va: va._last_touch)
+                key=lambda va: (self._kv_protected(va), va._last_touch))
             victims, freed = [], 0
             over = self.resident_bytes + needed - self.budget
             for va in cands:
@@ -522,7 +687,7 @@ class VirtualHBM:
         cands = sorted(
             ((va, a) for a in self.pool.arenas for va in a._live
              if va._dev is not None and va._pin == 0),
-            key=lambda p: p[0]._last_touch)
+            key=lambda p: (p[1]._kv_protected(p[0]), p[0]._last_touch))
         by_owner: dict = {}
         freed = 0
         for va, owner in cands:
@@ -542,8 +707,7 @@ class VirtualHBM:
                 va._pin += 1
             try:
                 self._evict_lru_until(need)
-                n_faults = 0
-                bytes_faulted = 0
+                faulted = []
                 for va in vas:
                     if va._dev is None:
                         if self.cuda:
@@ -551,36 +715,47 @@ class VirtualHBM:
                                                   non_blocking=True)
                         else:
                             va._dev = va._host.clone()
+                        va._ready = None
                         va._acct["resident"] = True
                         self.resident_bytes += va.nbytes
-                        n_faults += 1
-                        bytes_faulted += va.nbytes
+                        faulted.append(va)
                     self._touch(va)
-                if n_faults:
-                    self._m["page_in"].inc(n_faults)
-                    tev.record(tev.FAULT, self.name, n=n_faults,
-                               bytes=bytes_faulted)
+                if faulted:
+                    if self.cuda:
+                        ev = torch.cuda.Event()
+                        ev.record(torch.cuda.current_stream(self.device))
+                        for va in faulted:
+                            va._in_ev = ev
+                    self._m["page_in"].inc(len(faulted))
+                    tev.record(tev.FAULT, self.name, n=len(faulted),
+                               bytes=sum(va.nbytes for va in faulted))
             finally:
                 for va in vas:
                     va._pin -= 1
 
     # -- execution --------------------------------------------------------
 
-    def _record_pending(self) -> None:
-        """Record completion of the work just submitted (lock held)."""
-        if self.cuda:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            self._pending.append(ev)
+    def _record_pending(self):
+        """Record completion of the work just submitted (lock held); returns
+        the CUDA event (None on a CPU arena)."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._pending.append(ev)
+        return ev
 
-    def note_outputs(self, outs: Sequence[torch.Tensor]) -> list:
-        """Adopt computed outputs as device-resident dirty VArrays."""
+    def note_outputs(self, outs: Sequence[torch.Tensor], ready=None) -> list:
+        """Adopt computed outputs as device-resident dirty VArrays;
+        ``ready`` is the event recorded after the work that produced
+        them."""
         wrapped = []
         with self._lock:
             for o in outs:
                 va = VArray(self, None, o, dirty=True)
                 self._check_capacity(va.nbytes)
                 self._adopt(va)
+                va._ready = ready
                 wrapped.append(va)
         return wrapped
 
@@ -619,6 +794,14 @@ class VirtualHBM:
                 self._window = max(self._window // 2, _WINDOW_MIN)
             else:
                 self._window = min(self._window * 2, self._window_max)
+        # Observed step latency feeds the pager's writeback rate limiter.
+        pager = self.pager
+        if pager is not None:
+            try:
+                pager.note_step_latency(sync_s)
+            except Exception:  # pager bugs must not break submission
+                log.debug("pager step-latency hook failed", exc_info=True)
+        self._raise_pager_error()
 
     # -- lock hand-off hooks (wired to the client runtime) ----------------
 
@@ -630,8 +813,18 @@ class VirtualHBM:
         t0 = time.perf_counter()
         self.fence()
         with self._lock:
+            pager = self.pager
+            if pager is not None:
+                # The pager issues its side-stream copies under this lock,
+                # so every one is on its streams now: wait for them before
+                # any device memory goes back to the allocator.
+                pager.quiesce()
             resident = [va for va in self._live if va._dev is not None]
-            self._hot = [weakref.ref(va) for va in resident]
+            # Prefill activations (tagged "act") are consumed by this
+            # handoff: they leave the hot set, so the next grant never
+            # pages dead activations back in.
+            self._hot = [weakref.ref(va) for va in resident
+                         if va._phase_hint != "act"]
             handoff_bytes = sum(va.nbytes for va in resident)
             moved_before = int(self._m_bytes_out.value)
             clean_n = sum(1 for va in resident if not va._dirty)
@@ -651,7 +844,12 @@ class VirtualHBM:
                   len(self._hot), clean_n)
 
     def prefetch_hot(self) -> None:
-        """LOCK_OK path: bulk-page the last working set back in."""
+        """LOCK_OK path: bulk-page the last working set back in (with a
+        proactive pager attached: its planned, chunked prefetch)."""
+        pager = self.pager
+        if pager is not None:
+            pager.prefetch_on_grant()
+            return
         with self._lock:
             hot = [r() for r in self._hot]
             self._hot = []
@@ -883,6 +1081,7 @@ def vop(fn: Callable, *, static_argnums=(), donate_argnums=()) -> Callable:
         out_bytes = max(0, out_bytes - sum(d.nbytes for d in donated))
 
         interpose.gate()
+        a._raise_pager_error()
         with a._lock:
             a._busy_depth += 1
         try:
@@ -903,7 +1102,6 @@ def vop(fn: Callable, *, static_argnums=(), donate_argnums=()) -> Callable:
                 out_tree = fn(*dev_args)
                 outs = _output_leaves(out_tree)
                 del dev_args
-                a._record_pending()
                 # Retire donated operands FIRST: their storage may now back
                 # outputs, and adopting the outputs before releasing the
                 # donated bytes would double-count them.
@@ -918,7 +1116,7 @@ def vop(fn: Callable, *, static_argnums=(), donate_argnums=()) -> Callable:
                 # share (and double-count) one buffer.
                 outs = [o.clone() if o.untyped_storage().data_ptr() in kept
                         else o for o in outs]
-                wrapped = iter(a.note_outputs(outs))
+                wrapped = iter(a.note_outputs(outs, a._record_pending()))
                 result = _tree_map(lambda _o: next(wrapped), out_tree)
                 del out_tree, outs
             a.after_submit()

@@ -72,9 +72,14 @@ def test_two_port_tenants_serialize_and_page(sched_env):
 
 
 def test_tenant_refuses_unported_options(tmp_path, monkeypatch):
+    """QoS and the fleet streamer are still refused; the proactive pager,
+    ported since, attaches."""
     monkeypatch.setenv("TPUSHARE_SOCK_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        Tenant("torch-pager", device="cpu", use_pager=True)
+    t = Tenant("torch-pager", device="cpu", use_pager=True)
+    try:
+        assert t.pager is not None and t.arena.pager is t.pager
+    finally:
+        t.close()
     with pytest.raises(NotImplementedError):
         Tenant("torch-qos", device="cpu", qos="interactive:2")
     monkeypatch.setenv("TPUSHARE_FLEET", "1")

@@ -257,9 +257,17 @@ def test_vop_output_aliasing_a_kept_operand_is_copied(fn):
 
 
 def test_first_touch_is_refused(monkeypatch):
+    """First-touch paging was refused until the port had it; now the
+    switch is read as the JAX arena reads it, and no longer raises."""
     monkeypatch.setenv("TPUSHARE_PAGER_FIRST_TOUCH", "1")
-    with pytest.raises(NotImplementedError):
-        tvmem.VirtualHBM(device="cpu")
+    monkeypatch.setenv("TPUSHARE_PAGER_CHUNK_BYTES", str(64 << 10))
+    ta, ja = singleton(tvmem), singleton(jvmem)
+    assert ta.first_touch and ja.first_touch
+    assert ta.chunk_bytes == ja.chunk_bytes == 64 << 10
+    x = ta.array(big(12))
+    y = tvmem.vop(lambda v: v + 1.0)(x)
+    assert x._dirty_chunks is None  # clean at adoption
+    assert y._dirty_chunks == set(range(16))  # 1 MiB of 64 KiB chunks
 
 
 # -- pytrees through vop ----------------------------------------------------
