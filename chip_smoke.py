@@ -94,6 +94,33 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    must equal the solo run's, both tenants must be dropped at least
    twice, and K3, K4 and K5 must have launched 2 x 24, 24 and 24 times a
    step, every time by the wgmma route.
+9. The QoS pair: an LM server (``interactive:2``, the LM pair's budget
+   and request count) beside an LM trainer (``batch:1``, the training
+   pair's budget and step count), both at the widths above, in one
+   process under two private schedulers in turn, the first with
+   ``TPUSHARE_QOS_POLICY=fifo`` and the second with ``wfq``, at the LM
+   pair's quantum, with the fleet plane on (``TPUSHARE_FLEET=1``,
+   ``TPUSHARE_RELEASE_CHECK_S=30``). Every scoring checksum, decoded
+   token, loss and the final state sum must equal the earlier solo
+   runs; the live policy (``fetch_sched_stats``) must be the one asked
+   for; the fleet trace merged from the scheduler's replay must hold
+   both tenants' lock spans. Per leg: QoS preemptions, achieved against
+   entitled occupancy (the scheduler's ``occ_pm`` and
+   ``qos.report.build_report`` on the merged trace), each class's gate
+   wait p50/p99, the handoffs' writeback, wire and page-in medians
+   (``fleet.handoff_summaries``) and makespan against the solos. In the
+   WFQ leg the exporter (``TPUSHARE_METRICS_PORT=0``) is scraped once
+   and must carry both tenants' ``tpushare_lock_*`` series, and ``top
+   --once --plain`` runs once.
+10. The process pair: ``python -m nvshare_tpu_torch.bench_tenant`` with
+   the add burner (K1) at 0.40 of the card a process, first alone, then
+   two at once under a private scheduler: ``nat`` through the native
+   client built from ``src/`` (it must report ``NativeClient``), ``cha``
+   through the Python client over ``TPUSHARE_CHAOS=drop:0.04,seed:11``
+   (its link must drop a frame). Both checksums must equal the solo
+   process's, both must be handed off, and each one's metrics textfile
+   (``TPUSHARE_METRICS_TEXTFILE``) must carry its ``tpushare_lock_*``
+   series.
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +138,7 @@ import sys
 import tempfile
 import threading
 import time
+from dataclasses import replace
 from pathlib import Path
 from unittest import mock
 
@@ -277,7 +305,8 @@ class Phases:
 def build_all() -> dict:
     SCHED_DIR.mkdir(parents=True, exist_ok=True)
     targets = [str(SCHED_DIR / "tpushare-scheduler"),
-               str(SCHED_DIR / "tpusharectl")]
+               str(SCHED_DIR / "tpusharectl"),
+               str(SCHED_DIR / "libtpushare_client.so")]
     t0 = time.perf_counter()
     make = subprocess.Popen(
         ["make", "-C", str(REPO / "src"), "-j8", f"BUILD={SCHED_DIR}",
@@ -295,7 +324,7 @@ def build_all() -> dict:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log(f"built scheduler + ctl: {make_s:.1f} s")
+    log(f"built scheduler, ctl and client library: {make_s:.1f} s")
     return {k: v["seconds"] for k, v in kernels.items()}
 
 
@@ -670,13 +699,26 @@ def check_attention_backward(gen) -> tuple:
 
 # -- main path ---------------------------------------------------------------
 
-class Scheduler:
-    """A private tpushare-scheduler whose log goes to a file."""
+# Every scheduler here fixes its lease grace. The adaptive one (20x the
+# handoff EWMA, 10 s floor) fell below a tenant's first handoff, which
+# allocates its pinned shadows (10.6-13.7 s for 41-43 GiB on an H100
+# host): the scheduler revoked the tenant and granted the peer while the
+# revoked set was still on the card, and both ran out of device memory
+# (the LM pair and the QoS pair, one run each). A lost LOCK_RELEASED on
+# the process pair's chaos link costs this grace once.
+LEASE_GRACE_S = 30
+REVOKED = "lease expired — revoking"
 
-    def __init__(self, sock_dir: str, tq: int):
+
+class Scheduler:
+    """A private tpushare-scheduler, lease grace LEASE_GRACE_S, whose log
+    goes to a file."""
+
+    def __init__(self, sock_dir: str, tq: int, env: dict = None):
         self.sock_dir = sock_dir
         self.log_path = Path(sock_dir) / "scheduler.log"
-        env = dict(os.environ, TPUSHARE_SOCK_DIR=sock_dir,
+        env = dict(os.environ, TPUSHARE_REVOKE_GRACE_S=str(LEASE_GRACE_S),
+                   **(env or {}), TPUSHARE_SOCK_DIR=sock_dir,
                    TPUSHARE_TQ=str(tq))
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
@@ -852,7 +894,11 @@ def pair_counters(tenants) -> tuple:
 def check_pair(kind: str, names, stats: dict, drops: dict,
                log_text: str) -> int:
     """The scheduler granted and dropped both tenants (each at least
-    twice), and both evicted and prefetched; returns the DROP_LOCKs."""
+    twice) and revoked no lease, and both evicted and prefetched; returns
+    the DROP_LOCKs."""
+    revocations = re.findall(REVOKED + r"[^\n]*", log_text)
+    if revocations:
+        raise AssertionError(f"the scheduler revoked a lock: {revocations}")
     for name in names:
         if f"LOCK_OK -> {name} " not in log_text:
             raise AssertionError(f"scheduler never granted {name}")
@@ -908,8 +954,10 @@ def run_pair(name: str, budget: int, sched: Scheduler, workload,
         for t in tenants:
             t.close()
     if not report.ok:
+        revocations = re.findall(REVOKED + r"[^\n]*", sched.text())
         raise RuntimeError(f"{name} co-located tenants failed: "
-                           f"{report.errors}")
+                           f"{report.errors}; scheduler revocations: "
+                           f"{revocations}")
     for t in tenants:
         why = differs(report.results[t.name], solo_res)
         if why:
@@ -1771,6 +1819,21 @@ def check_lm_training() -> dict:
     return out
 
 
+def train_state_sizes(cfg: Transformer) -> tuple:
+    """(parameter count, bytes of each f32 parameter and momentum block)
+    of one trainer at ``cfg``."""
+    params, opt = init_lm_state(cfg, device="meta")
+    sizes = [x.numel() * x.element_size()
+             for x in (*params.values(), *opt["m"].values())]
+    return sum(x.numel() for x in params.values()), sizes
+
+
+def pinned_of(sizes) -> int:
+    """Pinned host bytes of ``sizes``: PyTorch's pinned allocator rounds
+    each block up to a power of two."""
+    return sum(1 << (n - 1).bit_length() for n in sizes)
+
+
 def size_train_pair(budget: int, physical: int, transient: int) -> dict:
     """The training pair's sizes and budget. Each tenant holds f32
     parameters and momentum; a step adds ``transient`` bytes (gradients,
@@ -1781,12 +1844,9 @@ def size_train_pair(budget: int, physical: int, transient: int) -> dict:
     fit in MemAvailable less the headroom, if a tenant's step beside the
     other's state would fit in the card (the pair must page at every
     handoff), or if one tenant's state does not fit the budget."""
-    params, opt = init_lm_state(TRAIN, device="meta")
-    sizes = [x.numel() * x.element_size()
-             for x in (*params.values(), *opt["m"].values())]
+    n_params, sizes = train_state_sizes(TRAIN)
     wss = sum(sizes)
-    pinned = sum(1 << (n - 1).bit_length() for n in sizes)
-    n_params = sum(x.numel() for x in params.values())
+    pinned = pinned_of(sizes)
     # The update's one temporary (lr * m of the largest parameter) on top.
     budget = budget - transient - max(sizes)
     avail, waited = settled_mem_available()
@@ -1814,8 +1874,8 @@ def size_train_pair(budget: int, physical: int, transient: int) -> dict:
             "budget": budget}
 
 
-def train_workload(steps: int):
-    return lm_train_workload(TRAIN, steps=steps, batch=TRAIN_BATCH,
+def train_workload(steps: int, cfg: Transformer = None):
+    return lm_train_workload(cfg or TRAIN, steps=steps, batch=TRAIN_BATCH,
                              lr=TRAIN_LR, seed=TRAIN_SEED)
 
 
@@ -1894,6 +1954,465 @@ def train_phases(phases: Phases, budget: int, physical: int,
     return res
 
 
+# -- QoS arbitration ---------------------------------------------------------
+
+QOS_SPECS = {"inter": "interactive:2", "batch": "batch:1"}
+QOS_ENV = {"TPUSHARE_FLEET": "1", "TPUSHARE_RELEASE_CHECK_S": "30"}
+FLEET_POLL_S = 0.5
+
+
+def size_qos_pair(lm: dict, train: dict) -> dict:
+    """Both tenants' pinned shadows at once (the LM's parameters and
+    cache, the trainer's parameters and momentum) against MemAvailable
+    less the headroom. Where they do not fit, the trainer's depth is cut
+    a layer at a time, never a width; raises if no depth fits."""
+    avail, waited = settled_mem_available()
+    room = avail - HOST_HEADROOM - lm["pinned_bytes"]
+    depth = TRAIN.depth
+    while depth > 1 and pinned_of(train_state_sizes(
+            replace(TRAIN, depth=depth))[1]) > room:
+        depth -= 1
+    train_pinned = pinned_of(train_state_sizes(
+        replace(TRAIN, depth=depth))[1])
+    pinned = lm["pinned_bytes"] + train_pinned
+    log(f"[qos] pinned shadows {lm['pinned_bytes'] / GiB:.2f} GiB (inter) "
+        f"+ {train_pinned / GiB:.2f} GiB (batch, {depth} layers) = "
+        f"{pinned / GiB:.2f} GiB against MemAvailable {avail / GiB:.2f} "
+        f"GiB (settled in {waited:.0f} s) less {HOST_HEADROOM / GiB:.0f} "
+        f"GiB headroom; working sets {lm['wss_bytes'] / GiB:.2f} + "
+        f"{train['wss_bytes'] / GiB:.2f} GiB at {TRAIN.depth} layers")
+    if train_pinned > room:
+        raise RuntimeError("host memory cannot hold both QoS tenants' "
+                           "pinned shadows at any depth of the trainer")
+    if depth < TRAIN.depth:
+        log(f"[qos] the trainer is cut from {TRAIN.depth} to {depth} "
+            "layers so that both pinned sets fit (widths unchanged)")
+    return {"pinned_bytes": pinned, "mem_available": avail,
+            "train_depth": depth}
+
+
+def run_train_solo(cfg: Transformer, budget: int, steps: int) -> dict:
+    """A solo run of the trainer at ``cfg`` (the QoS pair's, where its
+    depth was cut): the result its co-located runs must equal."""
+    t = Tenant(f"qos-train-solo-{cfg.depth}", budget_bytes=budget,
+               pool=vmem.PhysicalPool(budget))
+    try:
+        t0 = time.time()
+        res = t.run(train_workload(steps, cfg))
+        wall = time.time() - t0
+    finally:
+        t.close()
+    fault = train_solo_fault(res)
+    if fault:
+        raise AssertionError(f"QoS trainer solo at {cfg.depth} layers: "
+                             f"{fault}")
+    log(f"[qos] trainer solo at {cfg.depth} layers: {wall:.2f} s, losses "
+        f"{res.losses[0]:.5f} -> {res.losses[-1]:.5f}")
+    return {"solo": res, "solo_s": wall}
+
+
+def scrape_metrics(url: str, names) -> dict:
+    """One GET of the exporter: the tpushare_lock_* series of each of
+    ``names``; raises if the scrape fails or a tenant has none."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        text = r.read().decode()
+    series = {n: [ln.split(" ")[0] for ln in text.splitlines()
+                  if ln.startswith("tpushare_lock_")
+                  and f'client="{n}"' in ln] for n in names}
+    missing = [n for n, ss in series.items() if not ss]
+    if missing:
+        raise AssertionError(f"/metrics carries no tpushare_lock_* series "
+                             f"for {missing}")
+    return {n: len(ss) for n, ss in series.items()}
+
+
+class FleetPoller:
+    """Polls the leg's scheduler for the fleet trace every FLEET_POLL_S
+    (the replay ring drains on read), and once both tenants have been
+    granted runs ``on_both_granted`` (the WFQ leg's scrape and ``top``)."""
+
+    def __init__(self, sock: str, names, on_both_granted=None):
+        from nvshare_tpu_torch.telemetry.fleet import FleetCollector
+
+        self.collector = FleetCollector(sock_path=sock)
+        self.names = list(names)
+        self.on_both_granted = on_both_granted
+        self.hook_out = None
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="fleet-poller")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(FLEET_POLL_S):
+            try:
+                self.collector.poll()
+                rows = self.collector.tenants
+                if (self.on_both_granted is not None
+                        and self.hook_out is None
+                        and all((rows.get(n, {}).get("grants") or 0) >= 1
+                                for n in self.names)):
+                    self.hook_out = self.on_both_granted()
+            except Exception as e:  # kept and raised by stop()
+                self.error = e
+                return
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=60)
+        if self.error is not None:
+            raise self.error
+        self.collector.poll()  # the tail
+
+
+def run_top(sock_dir: str) -> str:
+    out = subprocess.run(
+        [sys.executable, "-m", "nvshare_tpu_torch.telemetry.top", "--once",
+         "--plain"], cwd=REPO, capture_output=True, text=True, timeout=60,
+        env=dict(os.environ, TPUSHARE_SOCK_DIR=sock_dir))
+    if out.returncode != 0:
+        raise RuntimeError(f"top failed: {out.stderr}")
+    return out.stdout
+
+
+def qos_leg(policy: str, lm: dict, train: dict, pool_bytes: int,
+            tq: int) -> dict:
+    """One leg of the QoS pair under a private scheduler started with
+    TPUSHARE_QOS_POLICY=``policy``: the LM server (interactive:2) beside
+    the trainer (batch:1), each with its earlier phase's budget and
+    counts, the fleet plane on. Every checksum, token, loss and the final
+    state sum must equal the earlier phases' solo runs; the live policy
+    must be the one asked for; the merged trace must hold both tenants'
+    lock spans. In the WFQ leg, /metrics is scraped once and ``top`` run
+    once while both tenants are live."""
+    from nvshare_tpu_torch.qos import entitled_shares, parse_qos
+    from nvshare_tpu_torch.qos.report import build_report, \
+        lock_spans_by_tenant
+    from nvshare_tpu_torch.telemetry import fleet
+    from nvshare_tpu_torch.telemetry.dump import fetch_sched_stats
+
+    names = {role: f"{role}-{policy}" for role in QOS_SPECS}
+    sock_dir = tempfile.mkdtemp(prefix=f"tpushare-qos-{policy}-")
+    sched = Scheduler(sock_dir, tq=tq, env={"TPUSHARE_QOS_POLICY": policy})
+    env = dict(QOS_ENV, TPUSHARE_SOCK_DIR=sock_dir)
+    if policy == "wfq":
+        env["TPUSHARE_METRICS_PORT"] = "0"
+    sock = str(Path(sock_dir) / "scheduler.sock")
+    tenants, poller, server = {}, None, None
+    try:
+        with mock.patch.dict(os.environ, env):
+            pool = vmem.PhysicalPool(pool_bytes)
+            tenants["inter"] = Tenant(names["inter"],
+                                      budget_bytes=lm["budget"], pool=pool,
+                                      qos=QOS_SPECS["inter"])
+            tenants["batch"] = Tenant(names["batch"],
+                                      budget_bytes=train["budget"],
+                                      pool=pool, qos=QOS_SPECS["batch"])
+            hook = None
+            if policy == "wfq":
+                server = telemetry.maybe_start_from_env()
+                if server is None:
+                    raise RuntimeError("TPUSHARE_METRICS_PORT=0 started no "
+                                       "exporter")
+
+                def hook():
+                    return {"metrics": scrape_metrics(server.url,
+                                                      names.values()),
+                            "top": run_top(sock_dir)}
+            poller = FleetPoller(sock, names.values(), hook)
+            report = run_colocated(
+                {tenants["inter"]: lm_workload_of(lm["requests"]),
+                 tenants["batch"]: train_workload(train["steps"],
+                                                  train["cfg"])},
+                timeout_s=900)
+            stats = fetch_sched_stats(path=sock)
+            fleet.reset_streamer()  # its last push carries the tail
+            poller.stop()
+            revocations = re.findall(REVOKED + r"[^\n]*", sched.text())
+    finally:
+        if poller is not None:
+            poller._stop.set()
+        for t in tenants.values():
+            t.close()
+        fleet.reset_streamer()
+        if server is not None:
+            server.close()
+        sched.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    if not report.ok:
+        raise RuntimeError(f"[qos {policy}] tenants failed: {report.errors}")
+    why = lm_differs(report.results[names["inter"]], lm["solo"])
+    if why:
+        raise AssertionError(f"[qos {policy}] inter: {why}")
+    got, want = report.results[names["batch"]], train["solo"]
+    if (got.losses, got.checksum) != (want.losses, want.checksum):
+        raise AssertionError(f"[qos {policy}] batch: losses {got.losses} "
+                             f"checksum {got.checksum!r} != solo "
+                             f"{want.losses} {want.checksum!r}")
+    live = stats["summary"].get("qpol")
+    if live != policy:
+        raise AssertionError(f"[qos {policy}] live policy {live!r}")
+    # The streamer's first push replays the ring from earlier phases too:
+    # keep the scheduler's instants and this leg's tenants.
+    trace = fleet.merge_trace(
+        [fr for fr in poller.collector.aligned_events()
+         if fr.get("sender") == "sched" or fr.get("who") in names.values()],
+        clock_offsets=poller.collector.offsets)
+    spans = lock_spans_by_tenant(trace)
+    for n in names.values():
+        if not spans.get(n):
+            raise AssertionError(f"[qos {policy}] the merged trace has no "
+                                 f"lock span of {n}")
+    specs = {names[r]: parse_qos(s) for r, s in QOS_SPECS.items()}
+    qrep = build_report(trace, specs)
+    rows = {c.get("client"): c for c in stats["clients"]}
+    occ = {r: rows.get(names[r], {}).get("occ_pm") or 0 for r in QOS_SPECS}
+    total_occ = sum(occ.values()) or 1
+    entitled = entitled_shares({names[r]: parse_qos(s).weight
+                                for r, s in QOS_SPECS.items()})
+    waits = {r: [float(e.args["seconds"]) for e in tev.ring().snapshot()
+                 if e.kind == tev.GATE_WAIT and e.who == names[r]]
+             for r in QOS_SPECS}
+    hs = fleet.handoff_summaries(trace)
+
+    def med(key):
+        return statistics.median(h[key] for h in hs) if hs else None
+
+    solo_s = {"inter": lm["solo_s"], "batch": train["solo_s"]}
+    leg = {
+        "policy": policy, "policy_live": live,
+        "qos_preempts": stats["summary"].get("qpre", 0),
+        "revocations": len(revocations),
+        "occ_share": {r: round(occ[r] / total_occ, 4) for r in QOS_SPECS},
+        "entitled_share": {r: round(entitled[names[r]], 4)
+                           for r in QOS_SPECS},
+        "trace_share": {r: qrep["tenants"][names[r]]["achieved_share"]
+                        for r in QOS_SPECS},
+        "gate_wait_p50_s": {r: percentile(w, 50) if w else None
+                            for r, w in waits.items()},
+        "gate_wait_p99_s": {r: percentile(w, 99) if w else None
+                            for r, w in waits.items()},
+        "gate_waits": {r: len(w) for r, w in waits.items()},
+        "handoffs": len(hs), "writeback_median_s": med("writeback_s"),
+        "wire_median_s": med("wire_s"), "pagein_median_s": med("pagein_s"),
+        "makespan_s": report.makespan_s,
+        "walls_s": {r: report.walls[names[r]] for r in QOS_SPECS},
+        "solo_s": solo_s,
+        "ratio": report.makespan_s / sum(solo_s.values()),
+        "trace_events": len(poller.collector.events),
+    }
+    leg["share_error"] = {r: round(leg["occ_share"][r]
+                                   - leg["entitled_share"][r], 4)
+                          for r in QOS_SPECS}
+    leg["line"] = (
+        f"[qos {policy}] live policy {live}, qos preempts "
+        f"{leg['qos_preempts']}, lease revocations {len(revocations)}; "
+        f"occupancy (occ_pm) {leg['occ_share']} "
+        f"against entitled {leg['entitled_share']}, from the merged trace "
+        f"{leg['trace_share']}; gate wait p50 {leg['gate_wait_p50_s']} s, "
+        f"p99 {leg['gate_wait_p99_s']} s over the waits "
+        f"{ {r: [round(x, 4) for x in w] for r, w in waits.items()} } s; "
+        f"{len(hs)} handoffs, median writeback {leg['writeback_median_s']}"
+        f" s, wire {leg['wire_median_s']} s, page-in "
+        f"{leg['pagein_median_s']} s; makespan {report.makespan_s:.2f} s "
+        f"against solos {solo_s['inter']:.2f} + {solo_s['batch']:.2f} s "
+        f"({leg['ratio']:.4f}); every checksum, token, loss and the state "
+        "sum equal solo")
+    log(leg["line"])
+    # A revocation grants the peer while the revoked tenant may still hold
+    # its working set on the card (PERF.md §7): with the grace fixed above
+    # a first handoff, none may happen.
+    if revocations:
+        raise AssertionError(f"[qos {policy}] the scheduler revoked a lock "
+                             f"{len(revocations)} times: {revocations}")
+    if poller.hook_out is not None:
+        leg["metrics_series"] = poller.hook_out["metrics"]
+        log(f"[qos {policy}] /metrics tpushare_lock_* series per tenant "
+            f"{leg['metrics_series']}; top --once --plain:\n"
+            + poller.hook_out["top"].rstrip())
+    elif policy == "wfq":
+        raise AssertionError("[qos wfq] the scrape and top never ran: a "
+                             "tenant was never granted during the leg")
+    return leg
+
+
+def qos_phase(lm: dict, train: dict, pool_bytes: int) -> dict:
+    """The QoS pair, FIFO then WFQ, at the TQ the LM pair's probe
+    picked."""
+    release_host_cache()
+    sizes = size_qos_pair(lm, train)
+    cfg = replace(TRAIN, depth=sizes["train_depth"])
+    train = dict(train, cfg=cfg)
+    if cfg.depth < TRAIN.depth:
+        train.update(run_train_solo(cfg, train["budget"], train["steps"]))
+    tq = lm["tq_s"]
+    log(f"[qos] specs {QOS_SPECS}, TQ {tq} s, lease grace {LEASE_GRACE_S} s, "
+        f"env {json.dumps(QOS_ENV)}; "
+        f"inter: {lm['requests']} requests, budget "
+        f"{lm['budget'] / GiB:.2f} GiB; batch: {train['steps']} steps at "
+        f"{cfg.depth} layers, "
+        f"budget {train['budget'] / GiB:.2f} GiB; pool "
+        f"{pool_bytes / GiB:.2f} GiB")
+    legs = {p: qos_leg(p, lm, train, pool_bytes, tq)
+            for p in ("fifo", "wfq")}
+    f50 = legs["fifo"]["gate_wait_p50_s"]["inter"]
+    w50 = legs["wfq"]["gate_wait_p50_s"]["inter"]
+    ratio = w50 / f50 if f50 and w50 is not None else None
+    within = all(abs(e) <= 0.10
+                 for e in legs["wfq"]["share_error"].values())
+    line = (f"[qos] interactive gate-wait p50 WFQ/FIFO {ratio} (over "
+            f"{legs['fifo']['gate_waits']['inter']} and "
+            f"{legs['wfq']['gate_waits']['inter']} waits); WFQ within 10% "
+            f"of entitlement: {within}")
+    log(line)
+    return dict(legs, tq_s=tq, p50_ratio_wfq_fifo=ratio, line=line,
+                wfq_within_entitlement_10pct=within, **sizes)
+
+
+# -- process tenants: the native client and a chaos-faulted link ------------
+
+PROC_KIND = "add"
+PROC_WSS_FRACTION = 0.40     # of the card, per process tenant
+PROC_WORK_S = 8.0            # burner seconds a tenant brings
+# Three handoff cycles of the working set (0.6-0.7 s each way on this
+# card), so each tenant is dropped once in its work and takes it back.
+PROC_TQ = 6
+# The chaos link: the reference chaos soak's fault schedule, and its
+# lost-frame insurance (a REQ_LOCK re-sent after 1 s at the gate).
+PROC_CHAOS_ENV = {"TPUSHARE_PURE_PYTHON": "1",
+                  "TPUSHARE_CHAOS": "drop:0.04,seed:11",
+                  "TPUSHARE_REQ_RETRY_S": "1",
+                  "TPUSHARE_RECONNECT": "1", "TPUSHARE_RECONNECT_S": "1"}
+
+
+def start_tenant_proc(name: str, args: list, env: dict):
+    return subprocess.Popen(
+        [sys.executable, "-u", "-m", "nvshare_tpu_torch.bench_tenant", name,
+         *map(str, args)], cwd=REPO, env=dict(os.environ, **env),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def collect_tenant_proc(name: str, proc, timeout_s: float) -> dict:
+    """The tenant's RESULT, once it has exited 0."""
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+        raise RuntimeError(f"tenant {name} timed out:\n{out[-4000:]}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"tenant {name} exited {proc.returncode}:\n"
+                           f"{out[-4000:]}")
+    for line in out.splitlines():
+        if line.startswith(f"{name} RESULT "):
+            return json.loads(line.split(" RESULT ", 1)[1])
+    raise RuntimeError(f"tenant {name} printed no RESULT:\n{out[-4000:]}")
+
+
+def proc_phase(physical: int, add_step_s: float, add_chunks: int) -> dict:
+    """Two OS-process tenants run the add burner (K1) on the process
+    arena at PROC_WSS_FRACTION of the card each under a private
+    scheduler, started together: ``nat`` through the native client
+    (libtpushare_client.so from SCHED_DIR), ``cha`` through the Python
+    client over a chaos link (PROC_CHAOS_ENV). First a solo process run
+    of the same command. Both tenants' checksums must equal the solo
+    run's; ``nat`` must report a NativeClient; ``cha``'s link must have
+    dropped a frame; each tenant's metrics textfile must carry its own
+    tpushare_lock_* series; each must have been handed off."""
+    release_host_cache()  # the QoS pair's pinned shadows, for the children
+    chunks = int(PROC_WSS_FRACTION * physical // CHUNK_BYTES)
+    step_s = add_step_s * chunks / add_chunks
+    steps = math.ceil(PROC_WORK_S / step_s)
+    wss = chunks * CHUNK_BYTES
+    args = [PROC_KIND, wss, steps, chunks, DEVICE_RATIO]
+    sock_dir = tempfile.mkdtemp(prefix="tpushare-proc-")
+    env = {"TPUSHARE_SOCK_DIR": sock_dir,
+           "TPUSHARE_LIB_DIR": str(SCHED_DIR),
+           "TPUSHARE_METRICS_TEXTFILE": str(Path(sock_dir) / "{job}.prom")}
+    sched = Scheduler(sock_dir, tq=PROC_TQ)
+    log(f"[proc] {PROC_KIND} burner, {chunks} chunks ({wss / GiB:.2f} GiB, "
+        f"{wss / physical:.4f} of the card) a process, {steps} steps "
+        f"(~{step_s:.3f} s each), TQ "
+        f"{PROC_TQ} s, lease grace {LEASE_GRACE_S} s; cha env "
+        f"{json.dumps(PROC_CHAOS_ENV)}")
+    procs = []
+    try:
+        t0 = time.time()
+        solo = collect_tenant_proc(
+            "solo", start_tenant_proc("solo", args, env), 600)
+        solo_s = time.time() - t0
+        t0 = time.time()
+        nat = start_tenant_proc("nat", args, env)
+        cha = start_tenant_proc("cha", args, dict(env, **PROC_CHAOS_ENV))
+        procs += [nat, cha]
+        res = {"nat": collect_tenant_proc("nat", nat, 600),
+               "cha": collect_tenant_proc("cha", cha, 600)}
+        makespan = time.time() - t0
+        log_text = sched.text()
+        proms = {n: (Path(sock_dir) / f"{n}.prom").read_text()
+                 for n in res}
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.terminate()
+                pr.wait(timeout=60)
+        sched.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    for name, r in res.items():
+        if r["checksum"] != solo["checksum"]:
+            raise AssertionError(f"{name} checksum {r['checksum']!r} != "
+                                 f"solo {solo['checksum']!r}")
+        if not any(ln.startswith("tpushare_lock_")
+                   and f'client="{name}"' in ln
+                   for ln in proms[name].splitlines()):
+            raise AssertionError(f"{name}.prom lacks its tpushare_lock_* "
+                                 "series")
+        if r["paging"]["handoff_evicts"] <= 0:
+            raise AssertionError(f"{name} was never handed off: "
+                                 f"{r['paging']}")
+    if solo["client"] != "NativeClient" or \
+            res["nat"]["client"] != "NativeClient":
+        raise AssertionError(f"nat ran {res['nat']['client']}, solo "
+                             f"{solo['client']}: not the native client")
+    if res["cha"]["chaos"]["dropped"] < 1:
+        raise AssertionError(f"cha's link dropped no frame: "
+                             f"{res['cha']['chaos']}")
+    # Only a frame the chaos link dropped (a LOCK_RELEASED lost on cha's
+    # way out) may leave a grant to the lease police; nat's link is clean.
+    revoked = re.findall(REVOKED + r" (\S+)", log_text)
+    unexplained = [n for n in revoked if n != "cha"]
+    if revoked.count("cha") > res["cha"]["chaos"]["dropped"]:
+        unexplained += ["cha"]
+    if unexplained:
+        raise AssertionError(f"[proc] lease revocations {revoked} that no "
+                             f"dropped frame explains: cha's link "
+                             f"{res['cha']['chaos']}")
+    out = {"chunks": chunks, "steps": steps, "solo_s": solo_s,
+           "makespan_s": makespan, "ratio": makespan / (2.0 * solo_s),
+           "walls_s": {n: r["wall_s"] for n, r in res.items()},
+           "run_s": {n: r["run_s"] for n, r in dict(res, solo=solo).items()},
+           "clients": {n: r["client"] for n, r in res.items()},
+           "chaos": res["cha"]["chaos"],
+           "req_resends": res["cha"]["req_resends"], "revocations": revoked,
+           "paging": {n: r["paging"] for n, r in res.items()},
+           "k1_launches": {n: r["launches"]["fused_mix"]
+                           for n, r in dict(res, solo=solo).items()}}
+    out["line"] = (
+        f"[proc] clients {out['clients']}; cha's chaos link "
+        f"{out['chaos']}, REQ_LOCK re-sends {out['req_resends']}, lease "
+        f"revocations {revoked}; walls {out['walls_s']} s (burner runs "
+        f"{out['run_s']} s), makespan "
+        f"{makespan:.2f} s, solo process {solo_s:.2f} s; checksums equal "
+        f"solo ({solo['checksum']!r}); K1 launches {out['k1_launches']}; "
+        f"handoff evictions "
+        f"{ {n: r['paging']['handoff_evicts'] for n, r in res.items()} }")
+    log(out["line"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1955,23 +2474,45 @@ def main() -> int:
         lm = lm_phases(phases, budget, physical, sched)
         serve = phases.run("serving phases", serving_phases, sched)
         train = train_phases(phases, budget, physical, sched)
+        wrappers = (flash_attention, flash_backward_dq, flash_backward_dkv)
+        reset_counts(*wrappers)
+        qos = phases.run("qos pair", qos_phase, dict(lm, budget=budget),
+                         train, budget)
+        qos_launches = [fn.launches.value for fn in wrappers]
+        qos_wgmma = [fn.route_launches[WGMMA].value for fn in wrappers]
+        depth = qos["train_depth"]
+        want = [2 * (LM.depth * lm["requests"] + 2 * depth * train["steps"]),
+                2 * depth * train["steps"], 2 * depth * train["steps"]]
+        if qos_launches != want or qos_wgmma != want:
+            raise AssertionError(f"K3/K4/K5 launched {qos_launches} times "
+                                 f"({qos_wgmma} by the wgmma route) on the "
+                                 f"QoS path, not {want}")
+        proc = phases.run("process pair", proc_phase, physical, add_step,
+                          chunks)
     finally:
         sched.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     if mm_launches == 0 or mix_launches == 0:
         raise AssertionError(f"kernel launches on the main path: matmul "
                              f"{mm_launches}, mix {mix_launches}")
+    proc_k1 = sum(proc["k1_launches"].values())
+    if proc_k1 == 0:
+        raise AssertionError("fused_mix never launched in the process "
+                             "tenants")
     k3_launches, k4_launches, k5_launches = train["launches"]
     lm_launches = lm["launches"] + lm["pager_launches"]
     k3_wgmma = (lm["wgmma_launches"] + lm["pager_wgmma_launches"]
                 + train["wgmma_launches"][0])
     k4_wgmma, k5_wgmma = train["wgmma_launches"][1:]
     log(f"main-path launches: tiled_matmul {mm_launches}, fused_mix "
-        f"{mix_launches}, flash_attention {lm['launches']} (serving) + "
-        f"{lm['pager_launches']} (serving, pager) + "
-        f"{k3_launches} (training), {k3_wgmma} of them by the wgmma route, "
-        f"flash_backward_dq {k4_launches}, {k4_wgmma} by the wgmma route, "
-        f"flash_backward_dkv {k5_launches}, {k5_wgmma} by the wgmma route")
+        f"{mix_launches} + {proc_k1} (process tenants), flash_attention "
+        f"{lm['launches']} (serving) + {lm['pager_launches']} (serving, "
+        f"pager) + {k3_launches} (training) + {qos_launches[0]} (QoS pair), "
+        f"{k3_wgmma + qos_wgmma[0]} of them by the wgmma route, "
+        f"flash_backward_dq {k4_launches} + {qos_launches[1]}, "
+        f"{k4_wgmma + qos_wgmma[1]} by the wgmma route, flash_backward_dkv "
+        f"{k5_launches} + {qos_launches[2]}, {k5_wgmma + qos_wgmma[2]} by "
+        "the wgmma route")
     if k3_wgmma != lm_launches + k3_launches or \
             k4_wgmma != k4_launches or k5_wgmma != k5_launches:
         raise AssertionError("a main-path launch of K3, K4 or K5 did not "
@@ -2006,12 +2547,19 @@ def main() -> int:
             "step_s", "losses", "handoffs", "handoff_mean_s", "drops",
             "wss_bytes", "pinned_bytes", "budget", "solo_peak_bytes",
             "peak_bytes")},
-        "train_check": train["check"]}))
+        "train_check": train["check"],
+        "qos": qos, "process_pair": proc}, default=str))
+    # The new pairs' readings again, after the long line, so that the end
+    # of the output carries them.
+    for line in (qos["fifo"]["line"], qos["wfq"]["line"], qos["line"],
+                 proc["line"]):
+        log(line)
     kernels = [
         # K1 runs on the CUDA cores.
         dict(name="fused_mix", route="cuda", design=CUDA_CORE,
              source="nvshare_tpu_torch/csrc/mix.cu",
-             replaces="nvshare_tpu/ops/mix.py:42", launches=mix_launches,
+             replaces="nvshare_tpu/ops/mix.py:42",
+             launches=mix_launches + proc_k1,
              **mix_entry),
         dict(name="tiled_matmul", route="cuda",
              source="nvshare_tpu_torch/csrc/matmul_sm90.cu",
@@ -2020,15 +2568,16 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:120",
-             launches=lm_launches + k3_launches, **att_entry),
+             launches=lm_launches + k3_launches + qos_launches[0],
+             **att_entry),
         dict(name="flash_backward_dq", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:267",
-             launches=k4_launches, **dq_entry),
+             launches=k4_launches + qos_launches[1], **dq_entry),
         dict(name="flash_backward_dkv", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:286",
-             launches=k5_launches, **dkv_entry),
+             launches=k5_launches + qos_launches[2], **dkv_entry),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

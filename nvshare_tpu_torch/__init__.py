@@ -7,8 +7,8 @@ semantics and telemetry names; its hot ops are CUDA C++ kernels written
 for ``sm_90a`` (``csrc/``), each with a plain PyTorch version beside it.
 
 This package never imports ``jax`` or ``nvshare_tpu``: it keeps its own
-copies of the jax-free modules it needs (protocol, client runtime,
-telemetry registry and event ring, env config, logging).
+copies of the jax-free modules it needs (protocol, client runtimes, QoS
+declarations, chaos faults, telemetry, env config, logging).
 
 Public surface:
   * :mod:`nvshare_tpu_torch.device` — explicit device resolution
@@ -28,6 +28,17 @@ Public surface:
     PyTorch on the CPU), and ``rope_rotate``.
   * :mod:`nvshare_tpu_torch.convert` — carry numpy state (arrays, LM
     parameters, KV caches, training state) across.
+  * :mod:`nvshare_tpu_torch.runtime.client` — the native client
+    (``libtpushare_client.so`` over ctypes) and the pure-Python one,
+    :func:`~nvshare_tpu_torch.runtime.client.make_client` picking;
+    :mod:`nvshare_tpu_torch.runtime.chaos` — ``$TPUSHARE_CHAOS`` faults.
+  * :mod:`nvshare_tpu_torch.qos` — ``TPUSHARE_QOS=class:weight``
+    declarations and the achieved-vs-entitled report.
+  * :mod:`nvshare_tpu_torch.telemetry` — metrics registry, event ring,
+    Prometheus and Chrome-trace exporters, the fleet plane, ``dump`` and
+    ``top``.
+  * :mod:`nvshare_tpu_torch.bench_tenant` — one burner tenant in its own
+    process.
 """
 
 __version__ = "0.1.0"

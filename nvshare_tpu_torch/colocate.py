@@ -4,8 +4,8 @@ The port of ``nvshare_tpu/colocate.py``: one process owns the card and
 hosts several tenants, each with its *own* :class:`VirtualHBM` arena and
 its own scheduler registration, arbitrated by the real
 ``tpushare-scheduler``. Each hand-off swaps the outgoing tenant's working
-set out for the incoming one's. (CUDA also allows process tenants, each
-its own process; gating those is not ported yet.) Workloads: the burners,
+set out for the incoming one's. (Process tenants, each its own process,
+run ``python -m nvshare_tpu_torch.bench_tenant``.) Workloads: the burners,
 an LM serving requests (:func:`lm_workload`) and an LM training
 (:func:`lm_train_workload`).
 """
@@ -37,8 +37,11 @@ class Tenant:
     oversubscribing, each still sees the whole budget. ``pool`` models the
     one card's physical memory shared by every co-located tenant. ``name``
     doubles as the telemetry label. ``use_pager`` attaches the proactive
-    pager (default: ``$TPUSHARE_PAGER``). QoS declarations (``qos``) are
-    not ported: asking for one raises.
+    pager (default: ``$TPUSHARE_PAGER``). ``qos`` is this tenant's QoS
+    declaration (``"interactive:2"``, ``"batch:1"`` or a
+    :class:`~nvshare_tpu_torch.qos.QosSpec`), per tenant because
+    in-process tenants share one environment; default
+    ``$TPUSHARE_QOS``, and None/unset declares nothing (FIFO).
     """
 
     def __init__(self, name: str, budget_bytes: Optional[int] = None,
@@ -58,6 +61,7 @@ class Tenant:
         self.client = PurePythonClient(
             job_name=self.arena.name, qos=qos,
             **client_callbacks(self.arena, self.pager))
+        self.qos = self.client.qos
         if self.pager is not None:
             self.pager.bind_client(self.client)
 

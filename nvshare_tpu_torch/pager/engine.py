@@ -207,6 +207,17 @@ class Pager:
             "bytes of prefetch plan staged against the published grant "
             "horizon (depth-proportional budgets)",
             ["client"]).labels(client=arena.name)
+        # Observed working-set EWMA gauge: exported only when the policy
+        # computes one (the `wss` policy); the fleet streamer rides it
+        # into the k=MET push as the optional wss= token.
+        self._g_wss = None
+        self._wss_next_s = 0.0       # next wss gauge refresh (throttle)
+        if hasattr(self.policy, "wss_ewma_bytes"):
+            self._g_wss = reg.gauge(
+                "tpushare_wss_bytes",
+                "observed working-set EWMA from the wss pager policy "
+                "(rides k=MET as wss= for tighter co-admission)",
+                ["client"]).labels(client=arena.name)
         arena.pager = self
         if start:
             self.start()
@@ -391,6 +402,7 @@ class Pager:
         with self._on_device():
             while not self._stop.wait(self.writeback_interval_s):
                 try:
+                    self._update_wss_gauge()
                     if not self._holder_phase():
                         continue
                     self._bg_prefetch_tick()
@@ -401,6 +413,21 @@ class Pager:
                         self._writeback_tick()
                 except Exception as e:  # re-raised in the tenant's thread
                     self._fail(e)
+
+    def _update_wss_gauge(self) -> None:
+        if self._g_wss is None:
+            return
+        # Throttled to the fleet push cadence: recomputing the EWMA walks
+        # the whole wss access history, and its only consumer (the k=MET
+        # push) samples at ~0.25 s.
+        now = time.monotonic()
+        if now < self._wss_next_s:
+            return
+        self._wss_next_s = now + 0.25
+        try:
+            self._g_wss.set(int(self.policy.wss_ewma_bytes()))
+        except Exception:  # policy bugs must not kill the daemon
+            log.debug("wss gauge update failed", exc_info=True)
 
     # -- adaptive writeback rate (first-touch streams) --------------------
 

@@ -1,19 +1,30 @@
-"""The pure-Python client runtime, the port's copy of the JAX package's
-``PurePythonClient`` (``runtime/client.py``).
+"""The client runtimes, the port's copy of the JAX package's
+``runtime/client.py``.
 
-It registers with the per-host ``tpushare-scheduler``, blocks gated work
-until the device lock is held, honors DROP_LOCK by running the arena's
-fence + evict callback, and releases early when idle. The native runtime
-(``libtpushare_client.so`` over ctypes), QoS declarations and the fleet
-telemetry streamer are not ported yet: asking for QoS or the fleet plane
-raises instead of registering without them.
+Both register with the per-host ``tpushare-scheduler``, block gated work
+until the device lock is held, honor DROP_LOCK by running the arena's
+fence + evict callback, and release early when idle:
+
+  * :class:`NativeClient` — ctypes over ``libtpushare_client.so`` (the C++
+    state machine in ``src/client.cpp``), one per process; the default of
+    :func:`make_client`. Its callbacks run on the native runtime's own
+    threads.
+  * :class:`PurePythonClient` — the same surface on
+    :class:`SchedulerLink`, one registration per instance, so several
+    in-process tenants each hold their own.
+
+Both carry the QoS declaration (``qos=`` / ``$TPUSHARE_QOS``), start the
+fleet telemetry streamer (``$TPUSHARE_FLEET=1``) and the metrics exporter
+(``$TPUSHARE_METRICS_PORT`` / ``_TEXTFILE``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import threading
 import time
+from pathlib import Path
 from typing import Callable, Optional
 
 from nvshare_tpu_torch import telemetry
@@ -32,10 +43,12 @@ from nvshare_tpu_torch.runtime.protocol import (
     parse_horizon,
 )
 from nvshare_tpu_torch.telemetry import events as tev
-from nvshare_tpu_torch.utils.config import refuse_env
 from nvshare_tpu_torch.utils.log import get_logger
 
 log = get_logger("client")
+
+#: Seconds ``PurePythonClient.shutdown`` waits for each of its threads.
+SHUTDOWN_JOIN_S = 30.0
 
 
 def _lock_metrics(client_name: str) -> dict:
@@ -78,9 +91,274 @@ def _lock_metrics(client_name: str) -> dict:
     }
 
 
+_CB_VOID = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+_CB_INT = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p)
+_CB_I64 = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p)
+_CB_ONDECK = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_int64)
+_CB_HORIZON = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64)
+_CB_MET = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p,
+                           ctypes.POINTER(ctypes.c_int64),
+                           ctypes.POINTER(ctypes.c_int64))
+
+# The native runtime's threads live for the whole process and keep calling
+# through these trampolines; pinning them here (not on the instance) means a
+# dropped NativeClient can never leave the native side with dangling
+# function pointers.
+_CALLBACK_KEEPALIVE: list = []
+
+
+class _Callbacks(ctypes.Structure):
+    # Mirrors tpushare_client_callbacks in src/client.hpp — field ORDER is
+    # the ABI; keep the two in lockstep.
+    _fields_ = [
+        ("sync_and_evict", _CB_VOID),
+        ("prefetch", _CB_VOID),
+        ("busy_probe", _CB_INT),
+        ("timed_sync_ms", _CB_I64),
+        ("on_deck", _CB_ONDECK),
+        ("on_horizon", _CB_HORIZON),
+        ("met_probe", _CB_MET),  # left null: no k=MET instants
+        ("user_data", ctypes.c_void_p),
+    ]
+
+
+def _default_lib_path() -> Path:
+    env = os.environ.get("TPUSHARE_LIB_DIR")
+    if env:
+        return Path(env) / "libtpushare_client.so"
+    return (
+        Path(__file__).resolve().parent.parent.parent
+        / "src" / "build" / "libtpushare_client.so"
+    )
+
+
+class NativeClient:
+    """ctypes wrapper over the singleton native client runtime.
+
+    One per process (the native library holds process-global state). Its
+    callbacks run on the runtime's own threads, which PyTorch has not
+    seen before: each starts on the default CUDA stream of device 0, and
+    the arena's hooks take its lock from there.
+
+    Unlike the JAX package's wrapper, an exception inside a callback is
+    not left to ctypes (which prints it and returns as if the callback
+    had succeeded): the first one is kept, the trampoline returns the
+    runtime's "unknown" value, and :meth:`continue_with_lock` and
+    :meth:`release_now` raise it in the tenant's own thread, so a CUDA
+    error during a handoff fails the tenant instead of running on.
+    """
+
+    def __init__(
+        self,
+        sync_and_evict: Optional[Callable[[], None]] = None,
+        prefetch: Optional[Callable[[], None]] = None,
+        busy_probe: Optional[Callable[[], int]] = None,
+        timed_sync_ms: Optional[Callable[[], int]] = None,
+        on_deck: Optional[Callable[[int], None]] = None,
+        on_horizon: Optional[Callable[[int, int, int], None]] = None,
+        lib_path: Optional[os.PathLike] = None,
+    ):
+        self.job_name = default_job_name()
+        self._m = _lock_metrics(self.job_name)
+        self._grant_t: Optional[float] = None
+        #: The first exception a callback raised (re-raised at the gate).
+        self.error: Optional[Exception] = None
+        telemetry.maybe_start_from_env()
+        # The native runtime releases the lock right after running the
+        # sync_and_evict callback (DROP_LOCK and idle early-release both
+        # funnel through it) — that callback edge is the only
+        # Python-visible release, so hook it here to close the trace
+        # span and observe the hold histogram.
+        orig_sync = sync_and_evict
+
+        def _traced_sync_and_evict():
+            if orig_sync is not None:
+                orig_sync()
+            args: dict = {"reason": "native"}
+            t0, self._grant_t = self._grant_t, None
+            if t0 is not None:
+                held_s = time.monotonic() - t0
+                self._m["hold"].observe(held_s)
+                args["seconds"] = round(held_s, 6)
+            self._m["releases"].labels(
+                client=self.job_name, reason="native").inc()
+            tev.record(tev.LOCK_RELEASE, self.job_name, **args)
+
+        orig_on_horizon = on_horizon
+
+        def _traced_on_horizon(depth: int, total: int,
+                               eta_ms: int) -> None:
+            # Advisory only, like on_deck: count + trace the published
+            # schedule position.
+            self._m["horizon"].inc()
+            tev.record(tev.HORIZON, self.job_name, d=int(depth),
+                       n=int(total), eta_ms=int(eta_ms))
+            if orig_on_horizon is not None:
+                orig_on_horizon(int(depth), int(total), int(eta_ms))
+
+        orig_on_deck = on_deck
+
+        def _traced_on_deck(remain_ms: int) -> None:
+            # Advisory only — never touches lock state; count + trace it.
+            self._m["on_deck"].inc()
+            tev.record(tev.ON_DECK, self.job_name,
+                       remain_ms=int(remain_ms))
+            if orig_on_deck is not None:
+                orig_on_deck(int(remain_ms))
+
+        path = Path(lib_path) if lib_path else _default_lib_path()
+        self._lib = ctypes.CDLL(str(path))
+        self._lib.tpushare_client_init.argtypes = [
+            ctypes.POINTER(_Callbacks)
+        ]
+        self._lib.tpushare_client_init.restype = ctypes.c_int
+        self._lib.tpushare_client_id.restype = ctypes.c_uint64
+        self._lib.tpushare_client_set_phase.argtypes = [ctypes.c_int64]
+
+        guard = self._guard
+        cb_kwargs = dict(
+            sync_and_evict=_CB_VOID(guard(
+                lambda _ud: _traced_sync_and_evict(), None)),
+            prefetch=_CB_VOID(guard(
+                (lambda _ud: prefetch()) if prefetch
+                else (lambda _ud: None), None)),
+            busy_probe=_CB_INT(guard(
+                (lambda _ud: busy_probe()) if busy_probe
+                else (lambda _ud: -1), -1)),
+            timed_sync_ms=_CB_I64(guard(
+                (lambda _ud: timed_sync_ms()) if timed_sync_ms
+                else (lambda _ud: -1), -1)),
+            user_data=None,
+        )
+        if orig_on_deck is not None:
+            # Only a real consumer installs the trampoline: a null
+            # on_deck keeps the native runtime from declaring the
+            # LOCK_NEXT capability (no advisory frames).
+            cb_kwargs["on_deck"] = _CB_ONDECK(guard(
+                lambda _ud, ms: _traced_on_deck(ms), None))
+        if orig_on_horizon is not None:
+            # Same gating for the horizon cap: no consumer, no
+            # trampoline, no kCapHorizon — zero GRANT_HORIZON frames.
+            cb_kwargs["on_horizon"] = _CB_HORIZON(guard(
+                lambda _ud, d, n, eta: _traced_on_horizon(d, n, eta), None))
+        self._cb_refs = _Callbacks(**cb_kwargs)
+        _CALLBACK_KEEPALIVE.append(self._cb_refs)
+        rc = self._lib.tpushare_client_init(ctypes.byref(self._cb_refs))
+        if rc != 0:
+            raise RuntimeError(
+                "tpushare client init failed (scheduler required but "
+                "unreachable)"
+            )
+        # Fleet plane ($TPUSHARE_FLEET=1): the native runtime owns its
+        # control socket in C++, so the streamer rides a dedicated
+        # observer-only connection — one per process. Disabled (the
+        # default) this is a no-op.
+        from nvshare_tpu_torch.telemetry.fleet import maybe_start_streamer
+
+        maybe_start_streamer(job_name=self.job_name)
+        # The native runtime's threads call back INTO Python; a callback
+        # firing after interpreter finalization is a segfault.
+        # tpushare_client_shutdown joins the native threads; ctypes
+        # releases the GIL around the call, so an in-flight callback can
+        # complete rather than deadlock.
+        import atexit
+
+        atexit.register(self._lib.tpushare_client_shutdown)
+
+    def _guard(self, fn, fallback):
+        """``fn`` for a ctypes trampoline: an exception is kept in
+        :attr:`error` (the first one) and ``fallback`` returned."""
+        def call(*args):
+            try:
+                return fn(*args)
+            except Exception as e:  # kept for the tenant's thread
+                if self.error is None:
+                    self.error = e
+                log.error("native client callback failed: %r", e)
+                return fallback
+        return call
+
+    def _raise_error(self) -> None:
+        if self.error is not None:
+            raise RuntimeError(
+                "a callback of the native client failed on its thread"
+            ) from self.error
+
+    def _record_acquire(self, waited_from: float) -> None:
+        now = time.monotonic()
+        self._grant_t = now
+        self._m["acquires"].inc()
+        waited_s = now - waited_from
+        self._m["gate_wait"].observe(waited_s)
+        # The exact wait sample, into the event ring: the fleet trace
+        # carries it to the QoS report's per-class percentiles.
+        tev.record(tev.GATE_WAIT, self.job_name,
+                   seconds=round(waited_s, 6))
+        tev.record(tev.LOCK_ACQUIRE, self.job_name, runtime="native")
+
+    def continue_with_lock(self) -> None:
+        self._raise_error()
+        # Hot path (already holding): exactly the native call plus two
+        # owns_lock probes. Lock transitions happen inside the native
+        # runtime, so the False->True edge across this call is the only
+        # Python-visible acquire to count/trace.
+        if self.owns_lock:
+            t0 = time.monotonic()
+            self._lib.tpushare_continue_with_lock()
+            # An async DROP_LOCK can land INSIDE the call: the release
+            # hook nulled _grant_t and the call blocked for a re-grant.
+            # Count that grant here (still holding + no open grant ==
+            # re-granted); t0 slightly overstates the wait.
+            if self._grant_t is None and self.owns_lock:
+                self._record_acquire(t0)
+            self._raise_error()
+            return
+        t0 = time.monotonic()
+        self._lib.tpushare_continue_with_lock()
+        if self.owns_lock:
+            self._record_acquire(t0)
+        self._raise_error()
+
+    @property
+    def owns_lock(self) -> bool:
+        return bool(self._lib.tpushare_client_owns_lock())
+
+    @property
+    def scheduler_on(self) -> bool:
+        return bool(self._lib.tpushare_client_scheduler_on())
+
+    @property
+    def managed(self) -> bool:
+        return bool(self._lib.tpushare_client_managed())
+
+    @property
+    def client_id(self) -> int:
+        return int(self._lib.tpushare_client_id())
+
+    def release_now(self) -> None:
+        self._lib.tpushare_client_release_now()
+        self._raise_error()
+
+    def mark_activity(self) -> None:
+        self._lib.tpushare_client_mark_activity()
+
+    def set_phase(self, phase) -> None:
+        """Declare the serving phase (``"idle"``/``"prefill"``/
+        ``"decode"`` or a ``PHASE_*`` id); advisory — see
+        :meth:`PurePythonClient.set_phase`."""
+        if isinstance(phase, str):
+            phase = PHASE_IDS.get(phase.strip().lower(), PHASE_IDLE)
+        self._lib.tpushare_client_set_phase(int(phase))
+
+    def shutdown(self) -> None:
+        self._lib.tpushare_client_shutdown()
+
+
 class PurePythonClient:
-    """The client runtime on :class:`SchedulerLink`: one registration per
-    instance, so several in-process tenants each hold their own."""
+    """Same surface as :class:`NativeClient`, implemented on
+    :class:`SchedulerLink`: one registration per instance, so several
+    in-process tenants each hold their own."""
 
     def __init__(
         self,
@@ -102,7 +380,7 @@ class PurePythonClient:
         self.job_name = job_name or default_job_name()
         self._m = _lock_metrics(self.job_name)
         self._grant_t: Optional[float] = None
-        telemetry.refuse_exporters()
+        telemetry.maybe_start_from_env()
         try:
             self.priority = int(os.environ.get("TPUSHARE_PRIORITY", "0"))
         except ValueError:  # garbage value: match the C runtime's fallback
@@ -132,6 +410,9 @@ class PurePythonClient:
                 os.environ.get("TPUSHARE_REQ_RETRY_S", "0"))
         except ValueError:
             self._req_retry_s = 0.0
+        #: REQ_LOCKs sent again within one gate wait (by that insurance,
+        #: or after a reconnect), for a run's report.
+        self.req_resends = 0
         self._in_callback = threading.local()
         self.managed = False
         self.scheduler_on = True
@@ -162,23 +443,31 @@ class PurePythonClient:
         self._phase = PHASE_IDLE
         if os.environ.get("TPUSHARE_PHASE") == "1":
             self._caps |= CAP_PHASE
-        # QoS declarations and the fleet plane are not ported: refuse them
-        # (an explicit `qos`, $TPUSHARE_QOS, $TPUSHARE_FLEET=1) rather
-        # than register as a plain FIFO tenant the caller did not ask for.
-        if qos is not None:
-            raise NotImplementedError(
-                "qos= asks for a QoS declaration, which nvshare_tpu_torch "
-                "does not implement yet")
-        refuse_env("TPUSHARE_QOS", "a QoS declaration")
-        refuse_env("TPUSHARE_FLEET", "the fleet telemetry streamer",
-                   switch=True)
-        self.qos = None
+        # QoS declaration: an explicit `qos` (spec string or QosSpec —
+        # in-process co-located tenants carry per-tenant specs) or the
+        # process-wide $TPUSHARE_QOS. None/unset adds no bits: the exact
+        # reference REGISTER arg, same degradation story as LOCK_NEXT.
+        from nvshare_tpu_torch.qos import spec as qos_spec
+
+        self.qos = (qos_spec.coerce(qos) if qos is not None
+                    else qos_spec.from_env())
+        if self.qos is not None:
+            self._caps |= self.qos.to_caps()
         try:
             self._link = SchedulerLink(job_name=job_name)
             self.client_id, self.scheduler_on = self._link.register(
                 caps=self._caps)
             self.managed = True
             self._declare_gang()
+            # Fleet plane ($TPUSHARE_FLEET=1): process-wide streamer on
+            # its own observer-only connection (the client state machine
+            # stays untouched; in-process co-located tenants share one
+            # streamer). Off by default — zero TELEMETRY_PUSH frames.
+            from nvshare_tpu_torch.telemetry.fleet import (
+                maybe_start_streamer,
+            )
+
+            maybe_start_streamer(job_name=self.job_name)
         except OSError:
             if os.environ.get("TPUSHARE_REQUIRE_SCHEDULER") == "1":
                 raise RuntimeError("scheduler required but unreachable")
@@ -638,6 +927,8 @@ class PurePythonClient:
             while self.scheduler_on and not self._own_lock and self.managed:
                 if not self._need_lock:
                     self._need_lock = True
+                    if waited_from is not None:
+                        self.req_resends += 1
                     self._send(MsgType.REQ_LOCK, self.priority)
                 if waited_from is None:
                     waited_from = time.monotonic()
@@ -682,21 +973,39 @@ class PurePythonClient:
                 pass
             self._link.close()
         self.managed = False
-        # Join the worker threads UNBOUNDED: only a completed join
-        # guarantees no client thread is inside native CUDA code when the
-        # interpreter finalizes. Both loops exit
-        # promptly on _stop (the cv was notified; the socket was shut
-        # down), so the residual wait is at most one in-flight
-        # sync/evict callback. Safe to call repeatedly / from atexit;
-        # never joins the calling thread itself.
+        # Join the worker threads, each within SHUTDOWN_JOIN_S: only
+        # a completed join guarantees no client thread is inside a CUDA
+        # call when the interpreter finalizes. Both loops exit promptly
+        # on _stop (the cv was notified; the socket was shut down), so
+        # the residual wait is at most one in-flight sync/evict
+        # callback. The JAX package joins without a bound, so a callback
+        # wedged inside a device call hangs its process at exit; here
+        # the join gives up, logs, and leaves the daemon thread to the
+        # interpreter. Safe to call repeatedly / from atexit; never
+        # joins the calling thread.
         for t in (getattr(self, "_msg_thread", None),
                   getattr(self, "_rel_thread", None)):
             if (t is not None and t.is_alive()
                     and t is not threading.current_thread()):
-                t.join()
+                t.join(timeout=SHUTDOWN_JOIN_S)
+                if t.is_alive():
+                    log.warning("client thread %s still running %.1f s "
+                                "after shutdown; not waiting for it",
+                                t.name, SHUTDOWN_JOIN_S)
 
 
-def make_client(**callbacks) -> PurePythonClient:
-    """Build the process's client runtime: the pure-Python client (the
-    native runtime is not part of the port yet)."""
+def make_client(prefer_native: Optional[bool] = None, **callbacks):
+    """Build the process's client runtime. Native by default; set
+    ``TPUSHARE_PURE_PYTHON=1`` (or ``prefer_native=False``) to force the
+    Python client. A missing library falls back to the Python client
+    with a warning, as in the JAX package."""
+    if prefer_native is None:
+        prefer_native = os.environ.get("TPUSHARE_PURE_PYTHON") != "1"
+    if prefer_native:
+        lib = _default_lib_path()
+        if lib.exists():
+            return NativeClient(**callbacks)
+        log.warning("native client library missing at %s — using the "
+                    "pure-Python fallback", lib)
+    callbacks.pop("lib_path", None)
     return PurePythonClient(**callbacks)

@@ -17,8 +17,6 @@ import socket
 import struct
 from dataclasses import dataclass
 
-from nvshare_tpu_torch.utils.config import refuse_env
-
 MAGIC = 0x48535054  # "TPSH" little-endian
 VERSION = 1
 IDENT_LEN = 140
@@ -47,7 +45,8 @@ CAP_OBSERVER = 4
 #: new frames and zero new fields, exactly the :data:`CAP_LOCK_NEXT`
 #: degradation story: with the env unset the arg stays 0 here
 #: (byte-for-byte reference wire exchange), and an old scheduler ignores
-#: bits it doesn't know. The port does not declare QoS yet.
+#: bits it doesn't know. See :mod:`nvshare_tpu_torch.qos.spec` for the
+#: parser/encoder both runtimes share.
 CAP_QOS = 8
 #: Bit 4: this client consumes :data:`MsgType.GRANT_HORIZON` advisories
 #: (its pager stages against the published schedule instead of the
@@ -183,7 +182,7 @@ class MsgType(enum.IntEnum):
     #: ctl: replay frame after STATS when GET_STATS asked with
     #: :data:`STATS_WANT_TELEM` (arg = arrival ms on the scheduler clock,
     #: ``job_namespace`` = sender name; the summary's ``telem=N``
-    #: announces how many follow). The port does not stream yet.
+    #: announces how many follow). See nvshare_tpu_torch/telemetry/fleet.py.
     TELEMETRY_PUSH = 20
     #: sched → client: your lease was revoked (grace expired with
     #: LOCK_RELEASED still outstanding); arg = the revoked grant's
@@ -358,12 +357,6 @@ class SchedulerLink:
 
     def __init__(self, path: str | None = None, job_name: str | None = None,
                  namespace: str = ""):
-        # Deterministic fault injection ($TPUSHARE_CHAOS) is not ported:
-        # refuse it rather than run a clean link the caller did not ask
-        # for.
-        for name in os.environ:
-            if name.startswith("TPUSHARE_CHAOS"):
-                refuse_env(name, "the chaos socket wrapper")
         self.path = path or scheduler_socket_path()
         self.job_name = job_name or default_job_name()
         self.namespace = namespace or os.environ.get("TPUSHARE_NAMESPACE", "")
@@ -382,6 +375,13 @@ class SchedulerLink:
                 if _time.monotonic() >= deadline:
                     raise
                 _time.sleep(0.05)
+        # Deterministic fault injection ($TPUSHARE_CHAOS): wraps the
+        # connected socket in a frame drop/delay/truncation proxy. Unset
+        # (the default) this returns the socket unchanged — zero overhead
+        # and zero behavior change.
+        from nvshare_tpu_torch.runtime.chaos import maybe_wrap_socket
+
+        self.sock = maybe_wrap_socket(self.sock)
         self.client_id = 0
         #: Scheduler capability bitmask from the register reply's arg
         #: (0 until :meth:`register` returns, and from pre-capability
@@ -479,7 +479,8 @@ def parse_stats_kv(line: str) -> dict:
     The scheduler emits every machine-read field before the (tenant-
     controlled, possibly truncated) holder name, so a trailing mangled
     token parses as a string and never corrupts the numeric fields. The
-    canonical parser for ``tpusharectl -s`` output and bench artifacts.
+    canonical parser for ``tpusharectl -s`` output, bench artifacts, and
+    ``nvshare_tpu_torch.telemetry.dump``.
     """
     out: dict = {}
     for tok in line.replace("\n", " ").split():

@@ -6,5 +6,4 @@ from nvshare_tpu_torch.utils.config import (  # noqa: F401
     env_bytes,
     env_float,
     env_int,
-    refuse_env,
 )

@@ -69,22 +69,6 @@ def env_bytes(name: str, default: int) -> int:
         return default
 
 
-def refuse_env(name: str, feature: str, switch: bool = False) -> None:
-    """Raise when ``$name`` asks for a feature this package does not
-    implement yet. A ``switch`` is read as :func:`env_bool` reads it
-    ("0"/"false"/"no"/"off" leave it off); any other variable asks as
-    soon as it is set to a non-empty value.
-
-    The JAX package honours these variables; silently ignoring one here
-    would run a different experiment than the caller asked for."""
-    asked = env_bool(name) if switch else bool(os.environ.get(name))
-    if asked:
-        raise NotImplementedError(
-            f"${name}={os.environ[name]!r} asks for {feature}, which "
-            "nvshare_tpu_torch does not implement yet; unset it or use "
-            "the JAX package")
-
-
 def ceil_rank_p99(samples):
     """Interpolation-free ceil-rank p99 over a non-empty sequence: with
     fewer than 100 samples this is the max. The JAX package's definition,

@@ -103,6 +103,68 @@ _arena_names = threading.Lock()  # guards the name bookkeeping
 # Labels ever handed out. Process-lifetime on purpose: a NEW arena
 # re-using a dead arena's label would inherit its counter children.
 _used_names: set = set()
+# Live arenas, read at scrape time by the residency-gauge collector.
+_live_arenas: "weakref.WeakSet[VirtualHBM]" = weakref.WeakSet()
+
+
+def _collect_arena_gauges() -> None:
+    # Never raise: a collector that raises gets dropped by
+    # Registry.collect for the life of the registry, while
+    # _ensure_gauge_collector's installed flag would still read True —
+    # the residency gauges would silently vanish. Swallow and log so a
+    # transient failure self-heals on the next scrape.
+    try:
+        _collect_arena_gauges_inner()
+    except Exception:
+        log.debug("arena gauge collection failed this scrape",
+                  exc_info=True)
+
+
+def _collect_arena_gauges_inner() -> None:
+    reg = telemetry.registry()
+    resident = reg.gauge("tpushare_resident_bytes",
+                         "bytes of managed arrays resident on device",
+                         ["client"])
+    tracked = reg.gauge("tpushare_tracked_bytes",
+                        "bytes of managed arrays tracked by the arena",
+                        ["client"])
+    budget = reg.gauge("tpushare_budget_bytes",
+                       "virtual HBM capacity the arena enforces",
+                       ["client"])
+    # Snapshot the WeakSet defensively: concurrent arena construction or
+    # a GC-driven weakref callback can mutate it mid-iteration.
+    for _ in range(4):
+        try:
+            arenas = list(_live_arenas)
+            break
+        except RuntimeError:
+            continue
+    else:
+        return  # churn storm; gauges refresh on the next scrape
+    for a in arenas:
+        try:
+            resident.labels(client=a.name).set(a.resident_bytes)
+            tracked.labels(client=a.name).set(a.tracked_bytes)
+            budget.labels(client=a.name).set(a.budget)
+        except AttributeError:
+            continue  # arena mid-construction; next scrape sees it whole
+    # Prune series whose arena is gone: a closed tenant's gauges drop out
+    # of the exposition instead of freezing at their last value.
+    live = {a.name for a in arenas}
+    for fam in (resident, tracked, budget):
+        for key, _ in fam.samples():
+            if key and key[0] not in live:
+                fam.remove(*key)
+
+
+def _ensure_gauge_collector() -> None:
+    # Re-armed per registry instance so reset_registry() in tests does not
+    # silently lose the residency gauges.
+    reg = telemetry.registry()
+    if getattr(reg, "_vmem_collector_installed", False):
+        return
+    reg._vmem_collector_installed = True
+    reg.add_collector(_collect_arena_gauges)
 
 
 _DEFAULT_HBM_BYTES = 16 << 30          # CPU arenas without $TPUSHARE_HBM_BYTES
@@ -268,7 +330,6 @@ class VirtualHBM:
                  budget_bytes: Optional[int] = None,
                  pool: Optional[PhysicalPool] = None,
                  name: Optional[str] = None):
-        telemetry.refuse_exporters()
         self.device = resolve_device(device)
         if name is None:
             from nvshare_tpu_torch.runtime.protocol import default_job_name
@@ -282,6 +343,7 @@ class VirtualHBM:
                 name = f"{name}-{i}"
             _used_names.add(name)
             self.name = name
+            _live_arenas.add(self)
         self.pool = pool
         if pool is not None:
             self._lock = pool.lock  # pool-wide serialization
@@ -345,6 +407,8 @@ class VirtualHBM:
         # Tenant serving phase (None until set_phase): only consulted when
         # set, so phase-less tenants keep every eviction order unchanged.
         self.phase: Optional[str] = None
+        _ensure_gauge_collector()
+        telemetry.maybe_start_from_env()
 
         win = env_int("TPUSHARE_WINDOW_MAX", _WINDOW_MAX)
         self._window_max = max(win, _WINDOW_MIN)
@@ -486,6 +550,7 @@ class VirtualHBM:
         # Fence BEFORE taking the (possibly pool-shared) lock, so a slow
         # device stalls only this tenant.
         self.fence()
+        _live_arenas.discard(self)  # stop exporting this arena's gauges
         with self._lock:
             for va in list(self._live):
                 self._discard(va)

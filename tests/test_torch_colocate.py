@@ -72,19 +72,41 @@ def test_two_port_tenants_serialize_and_page(sched_env):
 
 
 def test_tenant_refuses_unported_options(tmp_path, monkeypatch):
-    """QoS and the fleet streamer are still refused; the proactive pager,
-    ported since, attaches."""
+    """No option is refused any more: the proactive pager attaches,
+    ``qos=`` declares the spec at registration (``tenant.qos``), and
+    ``$TPUSHARE_FLEET=1`` starts the fleet streamer, as in the JAX
+    package. The test keeps the name it had while the options were
+    refused, so that its record carries over."""
+    from nvshare_tpu_torch.qos import parse_qos
+    from nvshare_tpu_torch.telemetry import fleet
+    from tests.conftest import SchedulerProc
+
     monkeypatch.setenv("TPUSHARE_SOCK_DIR", str(tmp_path))
     t = Tenant("torch-pager", device="cpu", use_pager=True)
     try:
         assert t.pager is not None and t.arena.pager is t.pager
     finally:
         t.close()
-    with pytest.raises(NotImplementedError):
-        Tenant("torch-qos", device="cpu", qos="interactive:2")
-    monkeypatch.setenv("TPUSHARE_FLEET", "1")
-    with pytest.raises(NotImplementedError):
-        Tenant("torch-fleet", device="cpu")
+    s = SchedulerProc(tmp_path, tq_sec=30)
+    tenants = []
+    try:
+        tenants.append(Tenant("torch-qos", device="cpu",
+                              qos="interactive:2"))
+        assert tenants[0].qos == parse_qos("interactive:2")
+        assert tenants[0].client.managed
+        fleet.reset_streamer()
+        monkeypatch.setenv("TPUSHARE_FLEET", "1")
+        tenants.append(Tenant("torch-fleet", device="cpu"))
+        assert tenants[1].qos is None
+        streamer = fleet.maybe_start_streamer()
+        assert streamer is not None and streamer.active
+        rows = s.ctl("-s").stdout
+        assert "torch-qos" in rows and "torch-fleet" in rows
+    finally:
+        fleet.reset_streamer()
+        for t in tenants:
+            t.close()
+        s.stop()
 
 
 def _train_run(names, budget):

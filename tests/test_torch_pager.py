@@ -727,9 +727,13 @@ def test_background_prefetch_races_donation_without_error(monkeypatch):
 
 def test_process_client_attaches_the_pager(monkeypatch, tmp_path):
     """$TPUSHARE_PAGER=1 wires the process arena's pager into the process
-    client, as nvshare_tpu.interpose.client() does."""
+    client, as nvshare_tpu.interpose.client() does. The process client is
+    the native one by default; this test pins the Python client, whose
+    callbacks it can read (the native runtime is process-wide state), as
+    the JAX package's in-process tests do."""
     from nvshare_tpu_torch import interpose
 
+    monkeypatch.setenv("TPUSHARE_PURE_PYTHON", "1")
     monkeypatch.setenv("TPUSHARE_PAGER", "1")
     monkeypatch.setenv("TPUSHARE_SOCK_DIR", str(tmp_path))  # no scheduler
     monkeypatch.setattr(interpose, "_client", None)
