@@ -112,15 +112,34 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    WFQ leg the exporter (``TPUSHARE_METRICS_PORT=0``) is scraped once
    and must carry both tenants' ``tpushare_lock_*`` series, and ``top
    --once --plain`` runs once.
-10. The process pair: ``python -m nvshare_tpu_torch.bench_tenant`` with
-   the add burner (K1) at 0.40 of the card a process, first alone, then
-   two at once under a private scheduler: ``nat`` through the native
-   client built from ``src/`` (it must report ``NativeClient``), ``cha``
-   through the Python client over ``TPUSHARE_CHAOS=drop:0.04,seed:11``
-   (its link must drop a frame). Both checksums must equal the solo
-   process's, both must be handed off, and each one's metrics textfile
-   (``TPUSHARE_METRICS_TEXTFILE``) must carry its ``tpushare_lock_*``
-   series.
+10. The oversubscribing process pair: ``python -m
+   nvshare_tpu_torch.bench_tenant`` as two processes whose working sets
+   together exceed the card (PROC_WSS_FRACTION of it each, cut only by
+   host memory; a pair of no more than 1.0x fails): ``nat`` the matmul
+   burner (K2) through the native client built from ``src/`` (it must
+   report ``NativeClient``), ``cha`` the add burner (K1) through the
+   Python client over ``TPUSHARE_CHAOS=drop:0.04,seed:11`` (its link must
+   drop a frame); first a solo process of each, then both at once under
+   a private scheduler. Both checksums must equal their solo's, each
+   must be handed off at least twice, each handoff must release the
+   process arena's freed blocks to the card (the process keeps at most
+   RELEASE_FLOOR reserved after one, printed), and each one's metrics
+   textfile (``TPUSHARE_METRICS_TEXTFILE``) must carry its
+   ``tpushare_lock_*`` series. ``python3 chip_smoke.py --pre-repair``
+   builds and runs only this pair with the release taken out of the
+   tenants, and must show the device OOM it prevents.
+11. The unmodified pair: ``python -m nvshare_tpu_torch.workloads.lm_train``
+   (GPT-3 6.7B widths, UNMOD_LAYERS of 32 layers) and ``...mlp_train``
+   (the MLP through the prefetching input pipeline), each made a tenant
+   only by ``import nvshare_tpu_torch.autoload``: each alone (the MLP
+   also restored from its midpoint checkpoint and run on; the LM once
+   more with ``TPUSHARE_DISABLE=1``, the gate's host cost), then both at
+   once at a quantum of at least 3x the measured handoff. Every loss and
+   state sum must equal solo bit for bit, both tenants must be granted
+   and dropped at least twice, and K3, K4 and K5 must have launched 2 x
+   layers, layers and layers times a step by the wgmma route, every
+   launch gated. Each child's whole output is kept under
+   ``build/logs/``.
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and ``{"ok": true, "device": {...}}``.
 """
@@ -132,6 +151,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -217,6 +237,8 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 SCHED_DIR = REPO / "build" / "sched"
+# Whole logs of the child processes (the tenants' own output).
+CHILD_LOGS = REPO / "build" / "logs"
 
 # The language model at the published widths of GPT-3 6.7B (Brown et al.
 # 2020, Table 2.1: 32 layers, d_model 4096, 32 heads of 128, n_ctx 2048;
@@ -248,7 +270,11 @@ PAGER_ENV = {"TPUSHARE_WRITEBACK_CHUNK_BYTES": str(CHUNK_BYTES),
              "TPUSHARE_WRITEBACK_INTERVAL_S": "0.02",
              "TPUSHARE_WRITEBACK_STREAMS": "2"}
 AB_SLEEP_S = 0.03        # the reference A/B's host time between steps
-AB_QUANTA = 3.5          # quanta of work each A/B tenant brings
+AB_QUANTA = 1.5          # quanta of work each A/B tenant brings
+# Quanta of device work a tenant of the burner, LM and training pairs
+# brings (plus two steps or requests): above 2, so that with both tenants
+# waiting on each other each is dropped at least twice.
+PAIR_QUANTA = 2.2
 # The serving phases: the mock decoder at the LM's cache widths.
 SERVE = dict(layers=2, batch=DECODE_BATCH, max_len=2048, d_model=4096)
 SERVE_TOKENS = 640
@@ -989,9 +1015,7 @@ def run_kind(kind: str, chunks: int, budget: int, sched: Scheduler,
              step_s: float, tq: int) -> dict:
     """Solo, then the co-located pair, of one burner kind."""
     wss = chunks * CHUNK_BYTES
-    # Each tenant's device work spans >= 3 quanta, so with both tenants
-    # waiting on each other it is dropped at least twice.
-    steps = max(3, math.ceil(3.0 * tq / step_s) + 2)
+    steps = max(3, math.ceil(PAIR_QUANTA * tq / step_s) + 2)
     log(f"[{kind}] {steps} steps, measured {step_s:.3f} s/step, TQ {tq} s")
 
     def workload():
@@ -1098,7 +1122,7 @@ def pager_ab(chunks: int, budget: int, sched: Scheduler, tq: int) -> dict:
     pager, and with the pager in first-touch mode, at the burner pair's
     working set and quantum. Every leg's results must equal the solo
     run's bit for bit, and each leg must hand off at least twice."""
-    steps = max(3 * chunks, math.ceil(AB_QUANTA * tq / AB_SLEEP_S))
+    steps = max(2 * chunks, math.ceil(AB_QUANTA * tq / AB_SLEEP_S))
     log(f"[ab] {chunks} chunks of {CHUNK_BYTES >> 20} MiB per tenant, "
         f"{steps} steps of one chunk + {AB_SLEEP_S * 1e3:.0f} ms, TQ {tq} s;"
         f" pager knobs {json.dumps(PAGER_ENV)}")
@@ -1653,10 +1677,10 @@ def lm_phases(phases: Phases, budget: int, physical: int,
     probe = phases.run("lm handoff cycle", measure_lm, budget)
     tq = max(2, math.ceil(3.0 * probe["cycle_s"]))
     sched.set_tq(tq)
-    # Each tenant's device work spans >= 3 quanta (dropped at least
-    # twice), within one session of LM.seq cached positions.
+    # PAIR_QUANTA of work, within one session of LM.seq cached positions.
     requests = min(LM.seq // DECODE_TOKENS,
-                   max(3, math.ceil(3.0 * tq / probe["request_s"]) + 2))
+                   max(3, math.ceil(PAIR_QUANTA * tq / probe["request_s"])
+                       + 2))
     log(f"[lm] handoff cycle {probe['cycle_s']:.3f} s "
         f"({sizes['wss_bytes'] / GiB:.2f} GiB out and back) -> TQ {tq} s; "
         f"request {probe['request_s']:.3f} s -> {requests} requests")
@@ -1933,8 +1957,7 @@ def train_phases(phases: Phases, budget: int, physical: int,
     probe = phases.run("train handoff cycle", measure_train, budget)
     tq = max(2, math.ceil(3.0 * probe["cycle_s"]))
     sched.set_tq(tq)
-    # Each tenant's device work spans >= 3 quanta (dropped at least twice).
-    steps = max(3, math.ceil(3.0 * tq / probe["step_s"]) + 2)
+    steps = max(3, math.ceil(PAIR_QUANTA * tq / probe["step_s"]) + 2)
     log(f"[train] handoff cycle {probe['cycle_s']:.3f} s "
         f"({sizes['wss_bytes'] / GiB:.2f} GiB out and back) -> TQ {tq} s; "
         f"step {probe['step_s']:.3f} s -> {steps} steps")
@@ -2272,111 +2295,254 @@ def qos_phase(lm: dict, train: dict, pool_bytes: int) -> dict:
                 wfq_within_entitlement_10pct=within, **sizes)
 
 
-# -- process tenants: the native client and a chaos-faulted link ------------
+# -- process tenants: an oversubscribing pair, native client and chaos link --
 
-PROC_KIND = "add"
-PROC_WSS_FRACTION = 0.40     # of the card, per process tenant
+# Each process's working set, as a fraction of the card, so that the pair
+# oversubscribes it: the reference's tf-matmul beside pytorch-add. Cut
+# only by host memory (PROC_HOST_HEADROOM), never below a pair of 1.0x.
+PROC_WSS_FRACTION = 0.53
+PROC_KINDS = {"nat": "matmul", "cha": "add"}
 PROC_WORK_S = 8.0            # burner seconds a tenant brings
-# Three handoff cycles of the working set (0.6-0.7 s each way on this
-# card), so each tenant is dropped once in its work and takes it back.
-PROC_TQ = 6
+# Two handoff cycles of the working set (1.0-1.2 s each way at ~42 GiB on
+# this card): each quantum pages the set in and does ~3 s of work, so
+# each tenant is dropped at least twice. The pair checks the release and
+# exactness; its ratio is not a yardstick at this quantum.
+PROC_TQ = 4
+# Host memory a tenant process adds besides its pinned shadows, on top
+# of HOST_HEADROOM: 0.6 GiB measured on the H100 host (its libraries'
+# pages are this process's, already charged).
+PROC_OVERHEAD = 1 * GiB
+# Reserved device memory a process may keep after a handoff released its
+# arena's blocks: its tensors outside the arena (none for a burner).
+RELEASE_FLOOR = 2 * CHUNK_BYTES
 # The chaos link: the reference chaos soak's fault schedule, and its
 # lost-frame insurance (a REQ_LOCK re-sent after 1 s at the gate).
 PROC_CHAOS_ENV = {"TPUSHARE_PURE_PYTHON": "1",
                   "TPUSHARE_CHAOS": "drop:0.04,seed:11",
                   "TPUSHARE_REQ_RETRY_S": "1",
                   "TPUSHARE_RECONNECT": "1", "TPUSHARE_RECONNECT_S": "1"}
+# --pre-repair: the tenant with its handoffs' release taken out, as the
+# arena was before it returned freed blocks to the card (this script's
+# flag, not the package's).
+PRE_REPAIR_TENANT = (
+    "import sys\n"
+    "from nvshare_tpu_torch import vmem\n"
+    "vmem.VirtualHBM._release_to_device = lambda self: None\n"
+    "from nvshare_tpu_torch.bench_tenant import main\n"
+    "sys.exit(main(sys.argv[1:]))\n")
 
 
-def start_tenant_proc(name: str, args: list, env: dict):
+def start_proc(name: str, cmd: list, env: dict):
+    """A child process of this repo's Python with ``env`` added, its
+    output kept for :func:`collect_proc`."""
     return subprocess.Popen(
-        [sys.executable, "-u", "-m", "nvshare_tpu_torch.bench_tenant", name,
-         *map(str, args)], cwd=REPO, env=dict(os.environ, **env),
+        [sys.executable, "-u", "-X", "faulthandler", *cmd], cwd=REPO,
+        env=dict(os.environ, **env, TPUSHARE_JOB_NAME=name),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def collect_tenant_proc(name: str, proc, timeout_s: float) -> dict:
-    """The tenant's RESULT, once it has exited 0."""
+def start_tenant_proc(name: str, args: list, env: dict,
+                      pre_repair: bool = False):
+    cmd = (["-c", PRE_REPAIR_TENANT] if pre_repair
+           else ["-m", "nvshare_tpu_torch.bench_tenant"])
+    return start_proc(name, [*cmd, name, *map(str, args)], env)
+
+
+def collect_proc(name: str, proc, timeout_s: float) -> dict:
+    """The process's RESULT, once it has exited 0. A process that outlives
+    ``timeout_s`` is sent SIGABRT, so that its faulthandler prints every
+    thread's stack into the kept log."""
+    CHILD_LOGS.mkdir(parents=True, exist_ok=True)
     try:
         out, _ = proc.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
-        proc.terminate()
+        proc.send_signal(signal.SIGABRT)
         out, _ = proc.communicate(timeout=60)
-        raise RuntimeError(f"tenant {name} timed out:\n{out[-4000:]}")
+        (CHILD_LOGS / f"{name}.log").write_text(out)
+        raise RuntimeError(f"{name} timed out:\n{out[-4000:]}")
+    (CHILD_LOGS / f"{name}.log").write_text(out)
     if proc.returncode != 0:
-        raise RuntimeError(f"tenant {name} exited {proc.returncode}:\n"
+        raise RuntimeError(f"{name} exited {proc.returncode}:\n"
                            f"{out[-4000:]}")
     for line in out.splitlines():
         if line.startswith(f"{name} RESULT "):
             return json.loads(line.split(" RESULT ", 1)[1])
-    raise RuntimeError(f"tenant {name} printed no RESULT:\n{out[-4000:]}")
+    raise RuntimeError(f"{name} printed no RESULT:\n{out[-4000:]}")
 
 
-def proc_phase(physical: int, add_step_s: float, add_chunks: int) -> dict:
-    """Two OS-process tenants run the add burner (K1) on the process
-    arena at PROC_WSS_FRACTION of the card each under a private
-    scheduler, started together: ``nat`` through the native client
-    (libtpushare_client.so from SCHED_DIR), ``cha`` through the Python
-    client over a chaos link (PROC_CHAOS_ENV). First a solo process run
-    of the same command. Both tenants' checksums must equal the solo
-    run's; ``nat`` must report a NativeClient; ``cha``'s link must have
-    dropped a frame; each tenant's metrics textfile must carry its own
-    tpushare_lock_* series; each must have been handed off."""
-    release_host_cache()  # the QoS pair's pinned shadows, for the children
-    chunks = int(PROC_WSS_FRACTION * physical // CHUNK_BYTES)
-    step_s = add_step_s * chunks / add_chunks
-    steps = math.ceil(PROC_WORK_S / step_s)
+def stop_procs(procs) -> None:
+    for pr in procs:
+        if pr.poll() is None:
+            pr.terminate()
+            try:
+                pr.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                pr.wait()
+
+
+def host_charged() -> int:
+    """Host memory charged to this job: its cgroup's ``memory.current``
+    where the machine has one, else MemTotal less MemAvailable."""
+    cg = Path("/sys/fs/cgroup/memory.current")
+    if cg.exists():
+        return int(cg.read_text())
+    return meminfo("MemTotal") - mem_available()
+
+
+class HostPeak:
+    """The most host memory charged (:func:`host_charged`) while a block
+    runs, sampled every 0.5 s on a thread of its own."""
+
+    def __enter__(self):
+        self.peak = host_charged()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.5):
+            self.peak = max(self.peak, host_charged())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(timeout=5)
+
+
+def size_proc_pair(physical: int) -> int:
+    """Chunks a process: PROC_WSS_FRACTION of the card, cut only by host
+    memory (both processes' pinned shadows at once, against MemAvailable
+    less HOST_HEADROOM and both processes' own PROC_OVERHEAD). Raises
+    where the pair would not exceed the card."""
+    release_host_cache()  # the earlier pairs' pinned shadows
+    avail, waited = settled_mem_available()
+    room = avail - HOST_HEADROOM - 2 * PROC_OVERHEAD
+    chunks = int(min(PROC_WSS_FRACTION * physical, room / 2)
+                 // CHUNK_BYTES)
     wss = chunks * CHUNK_BYTES
-    args = [PROC_KIND, wss, steps, chunks, DEVICE_RATIO]
-    sock_dir = tempfile.mkdtemp(prefix="tpushare-proc-")
+    limit = Path("/sys/fs/cgroup/memory.max")
+    log(f"[proc] host memory charged {host_charged() / GiB:.2f} GiB, "
+        f"limit {limit.read_text().strip() if limit.exists() else '-'}; "
+        f"MemAvailable {avail / GiB:.2f} GiB (settled in "
+        f"{waited:.0f} s) less {HOST_HEADROOM / GiB:.0f} GiB headroom and "
+        f"2 x {PROC_OVERHEAD / GiB:.0f} GiB a process: {chunks} chunks "
+        f"({wss / GiB:.2f} GiB, {wss / physical:.4f} of the card) a "
+        f"process, the pair {2 * wss / physical:.4f}x the card's "
+        f"{physical / GiB:.2f} GiB")
+    if 2 * wss <= physical:
+        raise RuntimeError(
+            f"host memory holds pinned shadows for a process pair of only "
+            f"{2 * wss / physical:.4f}x the card's memory; the pair must "
+            "oversubscribe the card")
+    return chunks
+
+
+def proc_args(kind: str, chunks: int, step_s: dict, base_chunks: int
+              ) -> list:
+    """bench_tenant's arguments: PROC_WORK_S of burner steps of ``kind``
+    at ``chunks`` (step time scaled from the main path's calibration at
+    ``base_chunks``)."""
+    steps = math.ceil(PROC_WORK_S * base_chunks / (step_s[kind] * chunks))
+    return [kind, chunks * CHUNK_BYTES, steps, chunks, DEVICE_RATIO]
+
+
+def run_proc_pair(chunks: int, args: dict, sock_dir: str,
+                  pre_repair: bool = False) -> tuple:
+    """``nat`` (the native client) and ``cha`` (the Python client over
+    the chaos link) started together; their RESULTs, the makespan and the
+    scheduler's log."""
     env = {"TPUSHARE_SOCK_DIR": sock_dir,
            "TPUSHARE_LIB_DIR": str(SCHED_DIR),
            "TPUSHARE_METRICS_TEXTFILE": str(Path(sock_dir) / "{job}.prom")}
+    envs = {"nat": env, "cha": dict(env, **PROC_CHAOS_ENV)}
     sched = Scheduler(sock_dir, tq=PROC_TQ)
-    log(f"[proc] {PROC_KIND} burner, {chunks} chunks ({wss / GiB:.2f} GiB, "
-        f"{wss / physical:.4f} of the card) a process, {steps} steps "
-        f"(~{step_s:.3f} s each), TQ "
-        f"{PROC_TQ} s, lease grace {LEASE_GRACE_S} s; cha env "
-        f"{json.dumps(PROC_CHAOS_ENV)}")
-    procs = []
+    procs = {}
     try:
         t0 = time.time()
-        solo = collect_tenant_proc(
-            "solo", start_tenant_proc("solo", args, env), 600)
-        solo_s = time.time() - t0
-        t0 = time.time()
-        nat = start_tenant_proc("nat", args, env)
-        cha = start_tenant_proc("cha", args, dict(env, **PROC_CHAOS_ENV))
-        procs += [nat, cha]
-        res = {"nat": collect_tenant_proc("nat", nat, 600),
-               "cha": collect_tenant_proc("cha", cha, 600)}
+        with HostPeak() as host:
+            procs = {n: start_tenant_proc(n, args[n], envs[n], pre_repair)
+                     for n in PROC_KINDS}
+            res, failed = {}, {}
+            for n, pr in procs.items():
+                try:
+                    res[n] = collect_proc(n, pr, 300)
+                except RuntimeError as e:
+                    failed[n] = str(e)
         makespan = time.time() - t0
-        log_text = sched.text()
+        log(f"[proc] host memory charged at most {host.peak / GiB:.2f} GiB "
+            "while the pair ran")
+        return res, failed, makespan, sched.text()
+    finally:
+        stop_procs(procs.values())
+        sched.stop()
+
+
+def proc_phase(physical: int, step_s: dict, base_chunks: int) -> dict:
+    """Two OS-process tenants whose working sets together exceed the
+    card: ``nat`` runs the matmul burner (K2) through the native client,
+    ``cha`` the add burner (K1) through the Python client over a chaos
+    link, both on their process arena, under a private scheduler at
+    PROC_TQ. First a solo process of each. Both checksums must equal
+    their solo's; both must be handed off at least twice, each handoff
+    releasing the arena's blocks so that the process keeps at most
+    RELEASE_FLOOR reserved; ``nat`` must report a NativeClient; ``cha``'s
+    link must have dropped a frame; each tenant's metrics textfile must
+    carry its own tpushare_lock_* series; no lease is revoked but for a
+    frame the chaos link dropped."""
+    chunks = size_proc_pair(physical)
+    args = {n: proc_args(k, chunks, step_s, base_chunks)
+            for n, k in PROC_KINDS.items()}
+    log(f"[proc] TQ {PROC_TQ} s, lease grace {LEASE_GRACE_S} s; nat "
+        f"{args['nat']}, cha {args['cha']} (kind, WSS bytes, steps, "
+        f"chunks, device ratio); cha env {json.dumps(PROC_CHAOS_ENV)}")
+    sock_dir = tempfile.mkdtemp(prefix="tpushare-proc-")
+    try:
+        solo, solo_s = {}, {}
+        env = {"TPUSHARE_SOCK_DIR": sock_dir,
+               "TPUSHARE_LIB_DIR": str(SCHED_DIR)}
+        sched = Scheduler(sock_dir, tq=PROC_TQ)
+        try:
+            for n in PROC_KINDS:
+                t0 = time.time()
+                solo[n] = collect_proc(f"solo-{n}", start_tenant_proc(
+                    f"solo-{n}", args[n], env), 600)
+                solo_s[n] = time.time() - t0
+        finally:
+            sched.stop()
+        res, failed, makespan, log_text = run_proc_pair(chunks, args,
+                                                        sock_dir)
         proms = {n: (Path(sock_dir) / f"{n}.prom").read_text()
                  for n in res}
     finally:
-        for pr in procs:
-            if pr.poll() is None:
-                pr.terminate()
-                pr.wait(timeout=60)
-        sched.stop()
         shutil.rmtree(sock_dir, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"[proc] tenants failed: {failed}")
     for name, r in res.items():
-        if r["checksum"] != solo["checksum"]:
+        if r["checksum"] != solo[name]["checksum"]:
             raise AssertionError(f"{name} checksum {r['checksum']!r} != "
-                                 f"solo {solo['checksum']!r}")
+                                 f"solo {solo[name]['checksum']!r}")
         if not any(ln.startswith("tpushare_lock_")
                    and f'client="{name}"' in ln
                    for ln in proms[name].splitlines()):
             raise AssertionError(f"{name}.prom lacks its tpushare_lock_* "
                                  "series")
-        if r["paging"]["handoff_evicts"] <= 0:
-            raise AssertionError(f"{name} was never handed off: "
-                                 f"{r['paging']}")
-    if solo["client"] != "NativeClient" or \
+        drops = len(re.findall(rf"DROP_LOCK -> {name} ", log_text))
+        if r["handoffs"] < 2 or drops < 2:
+            raise AssertionError(f"{name} was handed off {r['handoffs']} "
+                                 f"times ({drops} DROP_LOCKs), not at "
+                                 "least twice")
+        if r["releases"] < r["handoffs"] or \
+                r["reserved_after_release"] > RELEASE_FLOOR:
+            raise AssertionError(
+                f"{name}: {r['releases']} releases for {r['handoffs']} "
+                f"handoffs, {r['reserved_after_release']} bytes still "
+                f"reserved after one (floor {RELEASE_FLOOR})")
+    if solo["nat"]["client"] != "NativeClient" or \
             res["nat"]["client"] != "NativeClient":
         raise AssertionError(f"nat ran {res['nat']['client']}, solo "
-                             f"{solo['client']}: not the native client")
+                             f"{solo['nat']['client']}: not the native "
+                             "client")
     if res["cha"]["chaos"]["dropped"] < 1:
         raise AssertionError(f"cha's link dropped no frame: "
                              f"{res['cha']['chaos']}")
@@ -2390,30 +2556,267 @@ def proc_phase(physical: int, add_step_s: float, add_chunks: int) -> dict:
         raise AssertionError(f"[proc] lease revocations {revoked} that no "
                              f"dropped frame explains: cha's link "
                              f"{res['cha']['chaos']}")
-    out = {"chunks": chunks, "steps": steps, "solo_s": solo_s,
-           "makespan_s": makespan, "ratio": makespan / (2.0 * solo_s),
+    wss = chunks * CHUNK_BYTES
+    both = dict(res, **{f"solo-{n}": s for n, s in solo.items()})
+    out = {"chunks": chunks, "wss_bytes": wss,
+           "pair_x_card": 2 * wss / physical, "args": args,
+           "solo_s": solo_s, "makespan_s": makespan,
+           "ratio": makespan / sum(solo_s.values()),
            "walls_s": {n: r["wall_s"] for n, r in res.items()},
-           "run_s": {n: r["run_s"] for n, r in dict(res, solo=solo).items()},
+           "run_s": {n: r["run_s"] for n, r in both.items()},
            "clients": {n: r["client"] for n, r in res.items()},
            "chaos": res["cha"]["chaos"],
            "req_resends": res["cha"]["req_resends"], "revocations": revoked,
            "paging": {n: r["paging"] for n, r in res.items()},
+           "handoffs": {n: r["handoffs"] for n, r in res.items()},
+           "reserved_after_release": {
+               n: r["reserved_after_release"] for n, r in res.items()},
            "k1_launches": {n: r["launches"]["fused_mix"]
-                           for n, r in dict(res, solo=solo).items()}}
+                           for n, r in both.items()},
+           "k2_launches": {n: r["launches"]["tiled_matmul"]
+                           for n, r in both.items()}}
     out["line"] = (
-        f"[proc] clients {out['clients']}; cha's chaos link "
-        f"{out['chaos']}, REQ_LOCK re-sends {out['req_resends']}, lease "
-        f"revocations {revoked}; walls {out['walls_s']} s (burner runs "
-        f"{out['run_s']} s), makespan "
-        f"{makespan:.2f} s, solo process {solo_s:.2f} s; checksums equal "
-        f"solo ({solo['checksum']!r}); K1 launches {out['k1_launches']}; "
-        f"handoff evictions "
-        f"{ {n: r['paging']['handoff_evicts'] for n, r in res.items()} }")
+        f"[proc] {chunks} chunks ({wss / GiB:.2f} GiB) a process, the pair "
+        f"{out['pair_x_card']:.4f}x the card; clients {out['clients']}; "
+        f"cha's chaos link {out['chaos']}, REQ_LOCK re-sends "
+        f"{out['req_resends']}, lease revocations {revoked}; walls "
+        f"{out['walls_s']} s (burner runs {out['run_s']} s), makespan "
+        f"{makespan:.2f} s against solo processes {solo_s} s (ratio "
+        f"{out['ratio']:.4f}); checksums equal solo; handoffs "
+        f"{out['handoffs']}, reserved after each release at most "
+        f"{ {n: round(b / GiB, 3) for n, b in out['reserved_after_release'].items()} } "
+        f"GiB; K2 launches {out['k2_launches']}, K1 launches "
+        f"{out['k1_launches']}")
     log(out["line"])
     return out
 
 
-def main() -> int:
+def pre_repair_phase(physical: int) -> dict:
+    """The oversubscribing process pair with each handoff's release taken
+    out of the tenants (PRE_REPAIR_TENANT): the peer's page-in must then
+    fail with a device OOM, since the evicting process keeps its blocks
+    reserved. Step times are the burner's at this size from the main
+    path's calibration on an H100 (0.382 s matmul, 0.055 s add at 174
+    chunks); the pair runs until the first failure."""
+    chunks = size_proc_pair(physical)
+    args = {n: proc_args(k, chunks, {"matmul": 0.382, "add": 0.055}, 174)
+            for n, k in PROC_KINDS.items()}
+    sock_dir = tempfile.mkdtemp(prefix="tpushare-prerepair-")
+    try:
+        res, failed, makespan, log_text = run_proc_pair(
+            chunks, args, sock_dir, pre_repair=True)
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    ooms = {n: e for n, e in failed.items() if "out of memory" in e}
+    log(f"[pre-repair] {chunks} chunks a process; finished {sorted(res)}, "
+        f"failed {sorted(failed)} in {makespan:.2f} s; device OOM in "
+        f"{sorted(ooms)}")
+    for n, e in failed.items():
+        log(f"[pre-repair] {n}: ...{e[-1500:]}")
+    if not ooms:
+        raise AssertionError("without the release no tenant ran out of "
+                             "device memory")
+    return {"chunks": chunks, "failed": sorted(failed),
+            "oom": sorted(ooms), "makespan_s": makespan}
+
+
+# -- unmodified programs: the dispatch-mode gate ------------------------------
+
+# The unmodified LM trainer: GPT-3 6.7B widths (workloads/lm_train.py),
+# cut to UNMOD_LAYERS of 32 layers so that its peak reserved memory and
+# the MLP trainer's fit the card together (nothing of theirs pages). At
+# 16 layers the LM's peak in the pair was 47.1-47.8 GiB (4.7-5.4 GiB
+# above solo: the caching allocator refills after each release), and a
+# layer adds 2.3 GiB (f32 parameters, momentum and gradients): 24 layers
+# reach ~66 GiB, 28 would reach ~75 GiB of the ~77 GiB the MLP and two
+# CUDA contexts leave.
+UNMOD_LAYERS = 24
+UNMOD_LM_STEPS = 12
+UNMOD_UNGATED_STEPS = 3       # the ungated solo: the gate's host cost
+UNMOD_MLP_STEPS = 400
+UNMOD_MLP_BATCH = 1024
+
+
+def start_workload(name: str, module: str, args: list, env: dict):
+    return start_proc(name, ["-m", f"nvshare_tpu_torch.workloads.{module}",
+                             "--name", name, *map(str, args)], env)
+
+
+def check_gated_kernels(name: str, r: dict, layers: int, steps: int,
+                        gated: bool) -> None:
+    """K3 launched 2 x layers a step (forward and remat recompute), K4 and
+    K5 layers a step, every launch by the wgmma route and, under the
+    gate, every one in a gated unit."""
+    want = {"flash_attention": 2 * layers * steps,
+            "flash_backward_dq": layers * steps,
+            "flash_backward_dkv": layers * steps}
+    for kernel, n in want.items():
+        got = r["kernels"][kernel]
+        if (got["launches"], got["wgmma"], got["gated"]) != \
+                (n, n, n if gated else 0):
+            raise AssertionError(f"{name}: {kernel} {got}, want {n} "
+                                 f"launches by the wgmma route, "
+                                 f"{n if gated else 0} gated")
+
+
+def unmod_phase() -> dict:
+    """The unmodified pair: workloads/lm_train.py (GPT-3 6.7B widths at
+    UNMOD_LAYERS) and workloads/mlp_train.py, each made a tenant by its
+    one line (``import nvshare_tpu_torch.autoload``). Each alone under a
+    private scheduler (the MLP also restored from its midpoint checkpoint
+    and run on), the LM once more ungated (``TPUSHARE_DISABLE=1``), then
+    both at once at a quantum of at least 3x the measured handoff. Every
+    loss and state sum must equal solo bit for bit; both tenants must be
+    granted and dropped at least twice; K3-K5 launched by the wgmma route
+    at 2L/L/L a step, every launch gated."""
+    sock_dir = tempfile.mkdtemp(prefix="tpushare-unmod-")
+    ckpt = Path(sock_dir) / "ckpt"
+    env = {"TPUSHARE_SOCK_DIR": sock_dir,
+           "TPUSHARE_LIB_DIR": str(SCHED_DIR)}
+    lm_args = ["--layers", UNMOD_LAYERS, "--steps", UNMOD_LM_STEPS]
+    mlp_args = ["--steps", UNMOD_MLP_STEPS, "--batch", UNMOD_MLP_BATCH]
+    procs: list = []
+    try:
+        sched = Scheduler(sock_dir, tq=30)
+        try:
+            lm = collect_proc("lm-solo", start_workload(
+                "lm-solo", "lm_train", lm_args, env), 600)
+            ungated = collect_proc("lm-ungated", start_workload(
+                "lm-ungated", "lm_train",
+                ["--layers", UNMOD_LAYERS, "--steps", UNMOD_UNGATED_STEPS],
+                dict(env, TPUSHARE_DISABLE="1")), 600)
+            mlp = collect_proc("mlp-solo", start_workload(
+                "mlp-solo", "mlp_train", [*mlp_args, "--ckpt", ckpt], env),
+                600)
+            resumed = collect_proc("mlp-resumed", start_workload(
+                "mlp-resumed", "mlp_train", [*mlp_args, "--resume", ckpt],
+                env), 600)
+        finally:
+            sched.stop()
+        # A handoff fences the work in flight (at most a step's) and
+        # releases the freed blocks: the LM's step bounds it.
+        lm_step = statistics.median(lm["step_s"][1:])
+        tq = max(3, math.ceil(3.0 * lm_step))
+        sched = Scheduler(sock_dir, tq=tq)
+        try:
+            t0 = time.time()
+            procs = [start_workload("lm", "lm_train", lm_args, env),
+                     start_workload("mlp", "mlp_train", mlp_args, env)]
+            pair = {"lm": collect_proc("lm", procs[0], 900),
+                    "mlp": collect_proc("mlp", procs[1], 900)}
+            wall = time.time() - t0
+            log_text = sched.text()
+        finally:
+            stop_procs(procs)
+            sched.stop()
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    solo = {"lm": lm, "mlp": mlp}
+    for name, r in pair.items():
+        if r["losses"] != solo[name]["losses"] or \
+                r["state_sum"] != solo[name]["state_sum"]:
+            raise AssertionError(f"[unmod] {name} differs from solo: "
+                                 f"losses {r['losses']} state sum "
+                                 f"{r['state_sum']!r}, solo "
+                                 f"{solo[name]['losses']} "
+                                 f"{solo[name]['state_sum']!r}")
+        if not r["gate"] or r["gated_ops"] <= 0:
+            raise AssertionError(f"[unmod] {name} ran ungated: {r}")
+        grants = len(re.findall(rf"LOCK_OK -> {name} ", log_text))
+        drops = len(re.findall(rf"DROP_LOCK -> {name} ", log_text))
+        if grants < 2 or drops < 2:
+            raise AssertionError(f"[unmod] {name} granted {grants} and "
+                                 f"dropped {drops} times, not at least "
+                                 "twice each")
+        handoff = r["release"]
+        if handoff["handoffs"] < 2 or handoff["handoff_s_mean"] * 3.0 > tq:
+            raise AssertionError(f"[unmod] {name}'s handoffs {handoff} "
+                                 f"against TQ {tq} s")
+    if REVOKED in log_text:
+        raise AssertionError("[unmod] the scheduler revoked a lock")
+    mid = UNMOD_MLP_STEPS // 2
+    if resumed["start"] != mid or resumed["losses"] != mlp["losses"][mid:] \
+            or resumed["state_sum"] != mlp["state_sum"]:
+        raise AssertionError(f"[unmod] the MLP resumed from step "
+                             f"{resumed['start']} differs from its "
+                             f"uninterrupted run")
+    if ungated["gate"] or ungated["gated_ops"] != 0 or \
+            ungated["losses"] != lm["losses"][:UNMOD_UNGATED_STEPS]:
+        raise AssertionError("[unmod] the ungated LM differs from the "
+                             "gated one")
+    for name, r, steps, gated in (("lm-solo", lm, UNMOD_LM_STEPS, True),
+                                  ("lm", pair["lm"], UNMOD_LM_STEPS, True),
+                                  ("lm-ungated", ungated,
+                                   UNMOD_UNGATED_STEPS, False)):
+        check_gated_kernels(name, r, UNMOD_LAYERS, steps, gated)
+    # The training spans (from each state's creation; process start and
+    # CUDA init left out): the pair's from the first begin to the last
+    # end, against the two solo spans' sum.
+    solo_run = {n: r["t_end"] - r["t_begin"] for n, r in solo.items()}
+    span = (max(r["t_end"] for r in pair.values())
+            - min(r["t_begin"] for r in pair.values()))
+    gated_step = statistics.median(lm["step_s"][1:])
+    plain_step = statistics.median(ungated["step_s"][1:])
+    ops_step = lm["gated_ops"] / UNMOD_LM_STEPS
+    out = {
+        "layers": UNMOD_LAYERS, "lm_steps": UNMOD_LM_STEPS,
+        "mlp_steps": UNMOD_MLP_STEPS, "mlp_batch": UNMOD_MLP_BATCH,
+        "tq_s": tq,
+        "solo_run_s": solo_run, "makespan_s": span,
+        "ratio": span / sum(solo_run.values()), "wall_s": wall,
+        "step_s_gated": gated_step, "step_s_ungated": plain_step,
+        "gated_ops": {n: r["gated_ops"] for n, r in
+                      dict(pair, **{"lm-solo": lm, "mlp-solo": mlp}).items()},
+        "gated_ops_per_lm_step": ops_step,
+        "gate_us_per_op": (gated_step - plain_step) / ops_step * 1e6,
+        "peak_reserved": {n: r["peak_reserved"] for n, r in
+                          dict(pair, **{"lm-solo": lm, "mlp-solo": mlp,
+                                        "lm-ungated": ungated}).items()},
+        "handoffs": {n: r["release"] for n, r in pair.items()},
+        "grants_drops": {n: (len(re.findall(rf"LOCK_OK -> {n} ", log_text)),
+                             len(re.findall(rf"DROP_LOCK -> {n} ",
+                                            log_text))) for n in pair},
+        "losses": {"lm": lm["losses"], "mlp_first_last": (
+            mlp["losses"][0], mlp["losses"][-1])},
+        "state_sum": {n: solo[n]["state_sum"] for n in solo},
+        "launches": {n: r["kernels"] for n, r in
+                     (("lm-solo", lm), ("lm", pair["lm"]),
+                      ("lm-ungated", ungated))},
+    }
+    out["line"] = (
+        f"[unmod] lm_train at {UNMOD_LAYERS} layers x {UNMOD_LM_STEPS} "
+        f"steps beside mlp_train x {UNMOD_MLP_STEPS} steps (batch "
+        f"{UNMOD_MLP_BATCH}): TQ {tq} s, training makespan {span:.2f} s "
+        f"(processes {wall:.2f} s) against solo training spans "
+        f"{out['solo_run_s']} s (ratio {out['ratio']:.4f}); "
+        f"losses and state sums equal solo, the resumed MLP equal its "
+        f"uninterrupted run; grants/drops {out['grants_drops']}; LM step "
+        f"{gated_step:.4f} s gated, {plain_step:.4f} s ungated, "
+        f"{ops_step:.0f} gated ops a step, gate cost "
+        f"{out['gate_us_per_op']:.2f} us an op; peak reserved "
+        f"{ {n: round((b or 0) / GiB, 2) for n, b in out['peak_reserved'].items()} } "
+        f"GiB; handoffs {out['handoffs']}; K3/K4/K5 launches in the pair's "
+        f"LM {[pair['lm']['kernels'][k]['gated'] for k in ('flash_attention', 'flash_backward_dq', 'flash_backward_dkv')]} "
+        "gated, every one by the wgmma route")
+    log(out["line"])
+    return out
+
+
+def pre_repair_main(phases: Phases, card: str) -> int:
+    """``--pre-repair``: only the oversubscribing process pair, with the
+    release of each handoff's freed blocks taken out of the tenants."""
+    os.environ["TPUSHARE_REQUIRE_SCHEDULER"] = "1"
+    os.environ["TPUSHARE_PALLAS_MATMUL"] = "1"
+    physical = torch.cuda.mem_get_info()[1]
+    out = phases.run("pre-repair process pair", pre_repair_phase, physical)
+    log("phase seconds: " + json.dumps(phases.seconds))
+    log(card)
+    log(json.dumps({"pre_repair": out}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2426,6 +2829,10 @@ def main() -> int:
         f"{meminfo('Shmem') / GiB:.2f} GiB")
 
     phases.run("build", build_all)
+    if argv == ["--pre-repair"]:
+        return pre_repair_main(phases, card)
+    if argv:
+        raise SystemExit(f"usage: chip_smoke.py [--pre-repair]; got {argv}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     mix_entry = phases.run("check fused_mix", check_mix, gen)
     mm_entry = phases.run("check tiled_matmul", check_matmul, gen)
@@ -2487,8 +2894,9 @@ def main() -> int:
             raise AssertionError(f"K3/K4/K5 launched {qos_launches} times "
                                  f"({qos_wgmma} by the wgmma route) on the "
                                  f"QoS path, not {want}")
-        proc = phases.run("process pair", proc_phase, physical, add_step,
-                          chunks)
+        proc = phases.run("process pair", proc_phase, physical,
+                          {"matmul": mm_step, "add": add_step}, chunks)
+        unmod = phases.run("unmodified pair", unmod_phase)
     finally:
         sched.stop()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2496,23 +2904,33 @@ def main() -> int:
         raise AssertionError(f"kernel launches on the main path: matmul "
                              f"{mm_launches}, mix {mix_launches}")
     proc_k1 = sum(proc["k1_launches"].values())
-    if proc_k1 == 0:
-        raise AssertionError("fused_mix never launched in the process "
-                             "tenants")
+    proc_k2 = sum(proc["k2_launches"].values())
+    if proc_k1 == 0 or proc_k2 == 0:
+        raise AssertionError(f"process tenants' launches: fused_mix "
+                             f"{proc_k1}, tiled_matmul {proc_k2}")
+    # The unmodified LM runs, each checked to the launch (unmod_phase).
+    unmod_launches = [sum(r[k]["launches"] for r in unmod["launches"].values())
+                      for k in ("flash_attention", "flash_backward_dq",
+                                "flash_backward_dkv")]
     k3_launches, k4_launches, k5_launches = train["launches"]
     lm_launches = lm["launches"] + lm["pager_launches"]
     k3_wgmma = (lm["wgmma_launches"] + lm["pager_wgmma_launches"]
                 + train["wgmma_launches"][0])
     k4_wgmma, k5_wgmma = train["wgmma_launches"][1:]
-    log(f"main-path launches: tiled_matmul {mm_launches}, fused_mix "
+    log(f"main-path launches: tiled_matmul {mm_launches} + {proc_k2} "
+        f"(process tenants), fused_mix "
         f"{mix_launches} + {proc_k1} (process tenants), flash_attention "
         f"{lm['launches']} (serving) + {lm['pager_launches']} (serving, "
-        f"pager) + {k3_launches} (training) + {qos_launches[0]} (QoS pair), "
-        f"{k3_wgmma + qos_wgmma[0]} of them by the wgmma route, "
-        f"flash_backward_dq {k4_launches} + {qos_launches[1]}, "
-        f"{k4_wgmma + qos_wgmma[1]} by the wgmma route, flash_backward_dkv "
-        f"{k5_launches} + {qos_launches[2]}, {k5_wgmma + qos_wgmma[2]} by "
-        "the wgmma route")
+        f"pager) + {k3_launches} (training) + {qos_launches[0]} (QoS pair) "
+        f"+ {unmod_launches[0]} (unmodified LM), "
+        f"{k3_wgmma + qos_wgmma[0]} of the first four by the wgmma route, "
+        f"flash_backward_dq {k4_launches} + {qos_launches[1]} + "
+        f"{unmod_launches[1]}, "
+        f"{k4_wgmma + qos_wgmma[1]} of the first two by the wgmma route, "
+        f"flash_backward_dkv {k5_launches} + {qos_launches[2]} + "
+        f"{unmod_launches[2]}, {k5_wgmma + qos_wgmma[2]} of the first two "
+        "by the wgmma route (the unmodified LM's: every one, "
+        "unmod_phase)")
     if k3_wgmma != lm_launches + k3_launches or \
             k4_wgmma != k4_launches or k5_wgmma != k5_launches:
         raise AssertionError("a main-path launch of K3, K4 or K5 did not "
@@ -2548,11 +2966,12 @@ def main() -> int:
             "wss_bytes", "pinned_bytes", "budget", "solo_peak_bytes",
             "peak_bytes")},
         "train_check": train["check"],
-        "qos": qos, "process_pair": proc}, default=str))
-    # The new pairs' readings again, after the long line, so that the end
-    # of the output carries them.
-    for line in (qos["fifo"]["line"], qos["wfq"]["line"], qos["line"],
-                 proc["line"]):
+        "qos": qos, "process_pair": proc, "unmodified_pair": unmod},
+        default=str))
+    # The newest pairs' readings and the phase seconds again, after the
+    # long line, so that the end of the output carries them.
+    for line in (qos["line"], proc["line"], unmod["line"],
+                 "phase seconds: " + json.dumps(phases.seconds)):
         log(line)
     kernels = [
         # K1 runs on the CUDA cores.
@@ -2563,21 +2982,23 @@ def main() -> int:
              **mix_entry),
         dict(name="tiled_matmul", route="cuda",
              source="nvshare_tpu_torch/csrc/matmul_sm90.cu",
-             replaces="nvshare_tpu/ops/matmul.py:58", launches=mm_launches,
-             **mm_entry),
+             replaces="nvshare_tpu/ops/matmul.py:58",
+             launches=mm_launches + proc_k2, **mm_entry),
         dict(name="flash_attention", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:120",
-             launches=lm_launches + k3_launches + qos_launches[0],
-             **att_entry),
+             launches=lm_launches + k3_launches + qos_launches[0]
+             + unmod_launches[0], **att_entry),
         dict(name="flash_backward_dq", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:267",
-             launches=k4_launches + qos_launches[1], **dq_entry),
+             launches=k4_launches + qos_launches[1] + unmod_launches[1],
+             **dq_entry),
         dict(name="flash_backward_dkv", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:286",
-             launches=k5_launches + qos_launches[2], **dkv_entry),
+             launches=k5_launches + qos_launches[2] + unmod_launches[2],
+             **dkv_entry),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

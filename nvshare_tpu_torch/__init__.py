@@ -16,13 +16,22 @@ Public surface:
   * :mod:`nvshare_tpu_torch.vmem` — virtual device memory: residency
     tracking, LRU paging to pinned host shadows, handoff evict/prefetch;
     ``vop`` over nested dicts, lists and tuples of managed arrays.
-  * :mod:`nvshare_tpu_torch.interpose` — the device-lock gate.
+  * :mod:`nvshare_tpu_torch.interpose` — the device-lock gate, and
+    ``enable()``/``disable()``, which gate an unmodified program's aten
+    ops through a ``TorchDispatchMode``;
+    :mod:`nvshare_tpu_torch.autoload` — ``import
+    nvshare_tpu_torch.autoload`` enables it (``TPUSHARE_DISABLE=1``: not);
+    :mod:`nvshare_tpu_torch.parallel` — the multi-process guard.
   * :mod:`nvshare_tpu_torch.colocate` — in-process multi-tenant harness
     (burner, LM serving and LM training workloads).
   * :mod:`nvshare_tpu_torch.models.burner` — the co-location burners.
   * :mod:`nvshare_tpu_torch.models.transformer` and
     :mod:`nvshare_tpu_torch.models.decode` — the transformer LM's scoring
-    forward, KV-cache decoding and training step.
+    forward, KV-cache decoding and training step;
+    :mod:`nvshare_tpu_torch.models.mlp` — the MLP classifier.
+  * :mod:`nvshare_tpu_torch.utils.data` (``prefetch_to_device``) and
+    :mod:`nvshare_tpu_torch.utils.checkpoint` (train-state checkpoints
+    over ``torch.distributed.checkpoint``).
   * :mod:`nvshare_tpu_torch.ops` — ``fused_mix``, ``tiled_matmul`` and
     flash attention forward and backward (CUDA kernels on the card, plain
     PyTorch on the CPU), and ``rope_rotate``.
@@ -38,7 +47,9 @@ Public surface:
     Prometheus and Chrome-trace exporters, the fleet plane, ``dump`` and
     ``top``.
   * :mod:`nvshare_tpu_torch.bench_tenant` — one burner tenant in its own
-    process.
+    process; :mod:`nvshare_tpu_torch.workloads` — unmodified training
+    programs (``lm_train``, ``mlp_train``) made tenants by the autoload
+    import.
 """
 
 __version__ = "0.1.0"

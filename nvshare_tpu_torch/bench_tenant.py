@@ -12,13 +12,19 @@ gates on the device lock and every handoff evicts and prefetches the
 working set. ``$TPUSHARE_JOB_NAME`` defaults to ``<name>``, which labels
 the arena, the client and a ``{job}`` metrics textfile path. The
 exporters start from the environment (``$TPUSHARE_METRICS_PORT``,
-``$TPUSHARE_METRICS_TEXTFILE``, the latter written at exit). The tenant
-exits holding whatever it holds: its connection's close hands the lock
-on, and nothing is evicted for a process that is ending.
+``$TPUSHARE_METRICS_TEXTFILE``, the latter written at exit). At its end
+the tenant drops its working set without writing it back and returns
+the card memory before it hands the lock on: a process's device memory
+is freed only when its CUDA context goes, after its connection's close
+would already have granted a peer, whose page-in would then find the
+card still full.
 
 Prints ``<name> RESULT <json>``: walls, the burner's checksum, the client
 class, the arena's paging counters, the chaos link's fault counts, the
-client's REQ_LOCK re-sends and the kernel wrappers' launch counts. Exits 1 when the checksum is not finite.
+client's REQ_LOCK re-sends, the kernel wrappers' launch counts, and the
+arena's handoffs, the releases of their freed blocks to the card and the
+most device memory the process still reserved after one. Exits 1 when
+the checksum is not finite.
 The port's counterpart of the JAX package's ``tools/bench_tenant.py``.
 """
 
@@ -46,6 +52,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     os.environ.setdefault("TPUSHARE_JOB_NAME", args.name)
 
+    import torch
+
     from nvshare_tpu_torch import interpose, telemetry, vmem
     from nvshare_tpu_torch.models.burner import (
         AddBurner,
@@ -67,6 +75,12 @@ def main(argv=None) -> int:
     res = burner.run(args.steps,
                      step_hook=lambda _s: client.mark_activity())
     t_end = time.time()
+    # Drop the working set (no writeback) and return its memory before
+    # the lock goes on (see the module docstring).
+    arena.close()
+    if arena.cuda:
+        torch.cuda.empty_cache()
+    client.release_now()
     result = {
         "name": args.name, "kind": args.kind, "ok": res.passed,
         "wall_s": round(t_end - t_start, 3),
@@ -81,6 +95,9 @@ def main(argv=None) -> int:
         "req_resends": getattr(client, "req_resends", None),
         "launches": {"fused_mix": fused_mix.launches.value,
                      "tiled_matmul": tiled_matmul.launches.value},
+        "handoffs": arena._handoff_seq,
+        "releases": arena.device_releases,
+        "reserved_after_release": arena.reserved_after_release,
     }
     print(f"{args.name} RESULT {json.dumps(result)}", flush=True)
     return 0 if res.passed else 1

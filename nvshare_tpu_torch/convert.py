@@ -7,7 +7,8 @@ travels as numpy arrays: :func:`varrays_from_numpy` adopts them as one
 arena's managed arrays (``VArray.numpy`` reads them back), and
 :func:`transformer_params_from_numpy`, :func:`kv_cache_from_numpy` and
 :func:`lm_state_from_numpy` make a language model's parameter, cache and
-training-state dicts of them.
+training-state dicts of them, and :func:`mlp_params_from_numpy` an MLP's
+parameters.
 """
 
 from __future__ import annotations
@@ -64,3 +65,11 @@ def lm_state_from_numpy(params: Mapping[str, np.ndarray],
     ``init_lm_state`` pair (or of any later step's state)."""
     return (transformer_params_from_numpy(params, device),
             {"m": _tensors(opt_state["m"], torch.float32, device)})
+
+
+def mlp_params_from_numpy(params: Mapping[str, np.ndarray],
+                          device: DeviceLike = None) -> dict:
+    """An :class:`~nvshare_tpu_torch.models.mlp.MLP` parameter dict (f32
+    tensors on ``device``, default ``cuda``) from numpy arrays under the
+    JAX package's names (``w{i}``, ``b{i}``)."""
+    return _tensors(params, torch.float32, device)

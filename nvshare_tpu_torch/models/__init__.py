@@ -1,5 +1,6 @@
-"""Workload models of the port: the co-location burners and the
-transformer LM (scoring forward, KV-cache decode, and training)."""
+"""Workload models of the port: the co-location burners, the
+transformer LM (scoring forward, KV-cache decode, and training) and the
+MLP classifier."""
 
 from nvshare_tpu_torch.models.burner import (  # noqa: F401
     AddBurner,
@@ -13,6 +14,7 @@ from nvshare_tpu_torch.models.decode import (  # noqa: F401
     init_kv_cache,
     sample_generate,
 )
+from nvshare_tpu_torch.models.mlp import MLP, mlp_forward  # noqa: F401
 from nvshare_tpu_torch.models.transformer import (  # noqa: F401
     Transformer,
     init_lm_state,

@@ -43,24 +43,36 @@ _libs: Dict[str, ctypes.CDLL] = {}
 class LaunchCount:
     """Launches of one kernel: its wrapper adds one where it launches, and
     nowhere else, so a run can show that its path went through the
-    kernel."""
+    kernel. ``gated`` counts the launches made in a gated unit of the
+    dispatch-mode gate (:func:`nvshare_tpu_torch.interpose.launch_unit`)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._n = 0
+        self._gated = 0
 
     def add(self) -> None:
+        from nvshare_tpu_torch import interpose
+
+        gated = interpose.in_gated_unit()
         with self._lock:
             self._n += 1
+            self._gated += gated
 
     @property
     def value(self) -> int:
         with self._lock:
             return self._n
 
+    @property
+    def gated(self) -> int:
+        with self._lock:
+            return self._gated
+
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._gated = 0
 
 
 def nvcc() -> str:

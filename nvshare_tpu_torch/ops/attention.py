@@ -21,7 +21,8 @@ q, k and v are read strided as they lie (a view into a fused qkv
 projection needs no copy). On CPU or meta tensors the wrappers run
 :func:`flash_attention_reference`, the plain version, whatever the route.
 Each wrapper counts its launches in ``.launches`` and, per route, in
-``.route_launches``.
+``.route_launches``. Under the dispatch-mode gate each wrapper call is one
+gated unit (:func:`nvshare_tpu_torch.interpose.launch_unit`).
 
 Both entry points run inside a :class:`torch.autograd.Function`. Its
 backward saves q, k, v, the output and the LSE, and recomputes the
@@ -41,6 +42,7 @@ import math
 
 import torch
 
+from nvshare_tpu_torch import interpose
 from nvshare_tpu_torch.ops import _build
 
 _BQ = 128
@@ -222,9 +224,10 @@ def _forward(q, k, v, causal: bool):
     """(out, lse) through the kernel, or (out, None) on the ragged route."""
     if not _kernel_shapes_ok(q.shape[1], k.shape[1], q.shape[-1]):
         return reference_attention(q, k, v, causal=causal), None
-    if q.device.type != "cuda":
-        return flash_attention_reference(q, k, v, causal=causal)
-    return _launch(q, k, v, causal)
+    with interpose.launch_unit(q.device):
+        if q.device.type != "cuda":
+            return flash_attention_reference(q, k, v, causal=causal)
+        return _launch(q, k, v, causal)
 
 
 def _launch_backward(which: str, q, k, v, do, lse, delta, g_lse,
@@ -283,13 +286,14 @@ def flash_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`kernel_route`, the plain version
     (:func:`flash_backward_dq_reference`) on a CPU or meta tensor.
     Kernel-eligible shapes only."""
-    if q.device.type != "cuda":
-        return flash_backward_dq_reference(q, k, v, do, lse, delta, causal,
-                                           g_lse)
-    (dq,), route = _launch_backward("dq", q, k, v, do, lse, delta, g_lse,
-                                    causal)
-    flash_backward_dq.launches.add()
-    flash_backward_dq.route_launches[route].add()
+    with interpose.launch_unit(q.device):
+        if q.device.type != "cuda":
+            return flash_backward_dq_reference(q, k, v, do, lse, delta,
+                                               causal, g_lse)
+        (dq,), route = _launch_backward("dq", q, k, v, do, lse, delta,
+                                        g_lse, causal)
+        flash_backward_dq.launches.add()
+        flash_backward_dq.route_launches[route].add()
     return dq
 
 
@@ -301,13 +305,14 @@ def flash_backward_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dK, dV) [B,Sk,H,D] in k's and v's types: K5 on a CUDA tensor, by
     :func:`kernel_route`, the plain version on a CPU or meta tensor.
     Kernel-eligible shapes only."""
-    if q.device.type != "cuda":
-        return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal,
-                                            g_lse)
-    (dk, dv), route = _launch_backward("dkv", q, k, v, do, lse, delta,
-                                       g_lse, causal)
-    flash_backward_dkv.launches.add()
-    flash_backward_dkv.route_launches[route].add()
+    with interpose.launch_unit(q.device):
+        if q.device.type != "cuda":
+            return flash_backward_dkv_reference(q, k, v, do, lse, delta,
+                                                causal, g_lse)
+        (dk, dv), route = _launch_backward("dkv", q, k, v, do, lse, delta,
+                                           g_lse, causal)
+        flash_backward_dkv.launches.add()
+        flash_backward_dkv.route_launches[route].add()
     return dk, dv
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from nvshare_tpu_torch import interpose
 from nvshare_tpu_torch.ops import _build
 
 _BM = 128
@@ -63,25 +64,30 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor,
     if (a.data_ptr() | b.data_ptr()) % 16:
         raise ValueError("tiled_matmul kernel takes 16-byte aligned operands")
     code = _build.dtype_code(out_dtype, "tiled_matmul")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    lib = _build.load("matmul_sm90")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.tpushare_tiled_matmul_sm90(a.data_ptr(), b.data_ptr(),
-                                            out.data_ptr(), m, n, k, code,
-                                            stream)
-    _build.check(rc, "tiled_matmul")
-    tiled_matmul.launches.add()
+    with interpose.launch_unit(a.device):
+        out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+        lib = _build.load("matmul_sm90")
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = lib.tpushare_tiled_matmul_sm90(a.data_ptr(), b.data_ptr(),
+                                                out.data_ptr(), m, n, k,
+                                                code, stream)
+        _build.check(rc, "tiled_matmul")
+        tiled_matmul.launches.add()
     return out
 
 
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in bf16 with f32 accumulation, returned in ``a.dtype``."""
+    """``a @ b`` in bf16 with f32 accumulation, returned in ``a.dtype``.
+    One gated unit, the casts included, under the dispatch-mode gate
+    (:func:`nvshare_tpu_torch.interpose.launch_unit`)."""
     m, k = a.shape
     k2, n = b.shape
-    if k != k2 or m % _BM or n % _BN or k % _BK or a.device.type != "cuda":
-        return tiled_matmul_reference(a, b)
-    return matmul_kernel(to_bf16(a), to_bf16(b), a.dtype)
+    with interpose.launch_unit(a.device):
+        if k != k2 or m % _BM or n % _BN or k % _BK or \
+                a.device.type != "cuda":
+            return tiled_matmul_reference(a, b)
+        return matmul_kernel(to_bf16(a), to_bf16(b), a.dtype)
 
 
 tiled_matmul.launches = _build.LaunchCount()

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from nvshare_tpu_torch import interpose
 from nvshare_tpu_torch.ops import _build
 
 _TILE = 256
@@ -44,9 +45,15 @@ def fused_mix(a: torch.Tensor, b: torch.Tensor, alpha: float = 0.5,
     if out is not None and (out.shape != a.shape or out.dtype != a.dtype
                             or out.device != a.device):
         raise ValueError("out must match a's shape, dtype and device")
-    if a.device.type != "cuda" or not _eligible(a, b):
-        res = fused_mix_reference(a, b, alpha, beta, bias)
-        return res if out is None else out.copy_(res)
+    # One gated unit under the dispatch-mode gate (interpose.launch_unit).
+    with interpose.launch_unit(a.device):
+        if a.device.type != "cuda" or not _eligible(a, b):
+            res = fused_mix_reference(a, b, alpha, beta, bias)
+            return res if out is None else out.copy_(res)
+        return _launch(a, b, alpha, beta, bias, out)
+
+
+def _launch(a, b, alpha, beta, bias, out):
     if b.device != a.device or b.dtype != a.dtype:
         raise TypeError("fused_mix kernel takes a and b of one dtype on "
                         "one device")

@@ -329,8 +329,19 @@ class VirtualHBM:
     def __init__(self, device: DeviceLike = None,
                  budget_bytes: Optional[int] = None,
                  pool: Optional[PhysicalPool] = None,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None,
+                 release_on_handoff: bool = False):
         self.device = resolve_device(device)
+        # A process's own arena (arena()) hands the blocks its handoff
+        # eviction freed back to the card (_release_to_device): the
+        # caching allocator that holds them is this process's, and a peer
+        # PROCESS granted the lock cannot allocate them otherwise.
+        # In-process tenants (colocate.Tenant) share one allocator, which
+        # reuses the blocks for the next tenant as they are; releasing
+        # there would only add cudaFree/cudaMalloc cycles to each handoff.
+        self.release_on_handoff = bool(release_on_handoff)
+        self.device_releases = 0         # handoffs that released blocks
+        self.reserved_after_release = 0  # the most reserved after one
         if name is None:
             from nvshare_tpu_torch.runtime.protocol import default_job_name
 
@@ -700,7 +711,8 @@ class VirtualHBM:
                 continue
             # Dropping the last reference returns the block to PyTorch's
             # caching allocator (stream-ordered, so queued work using it
-            # finishes first).
+            # finishes first), which keeps it reserved on the card for
+            # this process (see release_on_handoff).
             va._dev = None
             va._acct["resident"] = False
             self.resident_bytes -= va.nbytes
@@ -894,6 +906,8 @@ class VirtualHBM:
             moved_before = int(self._m_bytes_out.value)
             clean_n = sum(1 for va in resident if not va._dirty)
             self._evict_batch(resident)  # pipelined writebacks
+            if self.release_on_handoff:
+                self._release_to_device()
             moved = int(self._m_bytes_out.value) - moved_before
             self._m["handoff_evicts"].inc(len(resident))
             self._handoff_seq += 1
@@ -907,6 +921,20 @@ class VirtualHBM:
                    seconds=round(dt, 6), hseq=hseq)
         log.debug("handoff eviction done (%d arrays, %d clean)",
                   len(self._hot), clean_n)
+
+    def _release_to_device(self) -> None:
+        """Return the caching allocator's free blocks to the card (lock
+        held, after the writebacks have completed: _writeback_batch
+        synchronized them, and every evicted array's block is free).
+        Records what the process still reserves: its tensors outside the
+        arena."""
+        self.device_releases += 1
+        if not self.cuda:
+            return
+        torch.cuda.empty_cache()
+        self.reserved_after_release = max(
+            self.reserved_after_release,
+            torch.cuda.memory_reserved(self.device))
 
     def prefetch_hot(self) -> None:
         """LOCK_OK path: bulk-page the last working set back in (with a
@@ -972,11 +1000,13 @@ _arena_lock = threading.Lock()
 
 def arena(device: DeviceLike = None) -> VirtualHBM:
     """The process-global arena, created on first use on ``device``
-    (default ``cuda``; later calls return it whatever they pass)."""
+    (default ``cuda``; later calls return it whatever they pass). It is
+    the process's own, so its handoffs release their blocks to the card
+    (``release_on_handoff``)."""
     global _arena
     with _arena_lock:
         if _arena is None:
-            _arena = VirtualHBM(device=device)
+            _arena = VirtualHBM(device=device, release_on_handoff=True)
         return _arena
 
 

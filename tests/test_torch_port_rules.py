@@ -5,7 +5,8 @@
   this pytest process imported both already).
 * The port's copy of the wire protocol agrees with the JAX package's.
 * Entry points default to CUDA and raise without it; they never carry on
-  on the CPU unless asked.
+  on the CPU unless asked: the dispatch-mode gate (``interpose.enable``)
+  and the unmodified workloads too.
 """
 
 import subprocess
@@ -18,7 +19,8 @@ import torch
 from tests.conftest import REPO_ROOT
 
 PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
+os.environ["TPUSHARE_DISABLE"] = "1"  # autoload is imported, not enabled
 sys.path.insert(0, sys.argv[1])
 import nvshare_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(nvshare_tpu_torch.__path__,
@@ -29,7 +31,9 @@ want = {"nvshare_tpu_torch." + m for m in (
     "bench_tenant", "qos", "qos.spec", "qos.report", "runtime.chaos",
     "runtime.client", "telemetry.chrome_trace", "telemetry.prometheus",
     "telemetry.check", "telemetry.dump", "telemetry.fleet",
-    "telemetry.top")}
+    "telemetry.top", "autoload", "parallel", "parallel.guard",
+    "models.mlp", "utils.data", "utils.checkpoint", "workloads",
+    "workloads.lm_train", "workloads.mlp_train")}
 assert want <= set(names), sorted(want - set(names))
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -202,3 +206,19 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_gate_and_workloads_default_to_cuda_and_raise_without_it(no_cuda):
+    from nvshare_tpu_torch import interpose
+    from nvshare_tpu_torch.utils.data import prefetch_to_device
+    from nvshare_tpu_torch.workloads import lm_train, mlp_train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interpose.enable()
+    assert not interpose.enabled()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_train.main(["--steps", "1", "--layers", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mlp_train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(prefetch_to_device(iter([np.zeros(2)])))
