@@ -140,6 +140,29 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    layers, layers and layers times a step by the wgmma route, every
    launch gated. Each child's whole output is kept under
    ``build/logs/``.
+12. Parallel ranks (``nvshare_tpu_torch/parallel``): N processes on the
+   one card through ``parallel/dryrun.py``'s spawn, under gloo (NCCL
+   refuses two ranks on one device), every collective staged through
+   pinned host buffers. World 2: ring and Ulysses attention at the LM's
+   scoring shape in bf16, causal and full, the output and the q, k, v
+   gradients held tile by tile against ``reference_attention`` in f32;
+   the sequence-parallel LM step (ring and Ulysses, PAR_LM, two steps)
+   and the sequence + expert parallel MoE LM step (PAR_MOE_LM, one); the
+   expert-parallel MoE FFN against the per-shard reference; the
+   pipeline step with transformer stages against the sequential blocks'
+   gradients. World 1, in this process: the same LM steps, ``lm_train_step``,
+   ``moe_lm_train_step`` and the MLP's ``train_step``, which the world-2
+   losses and state sums (and the world-4 dp x tp MLP on a 2 x 2 grid)
+   are held to, by the tolerances stated at PAR_*. The ring's K3-K5
+   launches must take the CUDA-core route, Ulysses' and the pipeline's
+   the wgmma route. The same two ranks then run the ring with each a tenant of one
+   private scheduler (``TPUSHARE_FORCE_MULTIHOST=1``, TQ PAR_GATE_TQ):
+   its bits must equal the ungated ring's; if it deadlocks, the
+   scheduler's log is kept and the guard's default refusal shown. Each
+   rank's backend, collectives (bytes and seconds staged), peak device
+   memory and seconds are printed. Phase 3 also holds K3, K4 and K5's
+   f32 route at the ring's block shapes against their plain versions and
+   times it beside ``scaled_dot_product_attention`` in f32.
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and ``{"ok": true, "device": {...}}``.
 """
@@ -162,6 +185,7 @@ from dataclasses import replace
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -176,6 +200,13 @@ from nvshare_tpu_torch.colocate import (  # noqa: E402
     run_colocated,
 )
 from nvshare_tpu_torch.models.burner import AddBurner, MatmulBurner  # noqa: E402
+from nvshare_tpu_torch.models.mlp import MLP  # noqa: E402
+from nvshare_tpu_torch.parallel import dryrun  # noqa: E402
+# tile_rel_err: the tile-wise norm check every attention check uses.
+from nvshare_tpu_torch.parallel.dryrun import (  # noqa: E402
+    TILE_ROWS,
+    tile_rel_err,
+)
 from nvshare_tpu_torch.models.serving import (  # noqa: E402
     decode_workload,
     gate_wait_samples,
@@ -277,7 +308,7 @@ AB_QUANTA = 1.5          # quanta of work each A/B tenant brings
 PAIR_QUANTA = 2.2
 # The serving phases: the mock decoder at the LM's cache widths.
 SERVE = dict(layers=2, batch=DECODE_BATCH, max_len=2048, d_model=4096)
-SERVE_TOKENS = 640
+SERVE_TOKENS = 480
 SERVE_REQUESTS = 4
 SERVE_THINK_S = 0.01     # inter-token host work of the decode tenant
 # Prefill bursts of 2048 x 2048 activations, long enough on the card that
@@ -579,24 +610,6 @@ def _excess(got, want, tol: float) -> float:
     holds."""
     got, want = got.float(), want.float()
     return ((got - want).abs() - (tol + tol * want.abs())).max().item()
-
-
-TILE_ROWS = 64
-
-
-def tile_rel_err(got, want) -> float:
-    """The largest norm-wise relative error ||got - want|| / ||want|| over
-    the tiles of TILE_ROWS rows of one head of a [B, S, H, D] gradient. It
-    does not depend on the gradients' scale, and a wrong or skipped tile
-    shows wherever it lies. A tile whose reference is below 1e-6 of the
-    largest tile's norm (causal dK, dV of keys no query sees) is measured
-    against that floor."""
-    b, s, h, d = want.shape
-    shape = (b, s // TILE_ROWS, TILE_ROWS, h, d)
-    diff = (got.float() - want.float()).reshape(shape).norm(dim=(2, 4))
-    ref = want.float().reshape(shape).norm(dim=(2, 4))
-    floor = max(1e-6 * ref.max().item(), torch.finfo(torch.float32).tiny)
-    return (diff / ref.clamp(min=floor)).max().item()
 
 
 # The tight limits on tile_rel_err for K3 and for K4 and K5 against their
@@ -2302,7 +2315,7 @@ def qos_phase(lm: dict, train: dict, pool_bytes: int) -> dict:
 # only by host memory (PROC_HOST_HEADROOM), never below a pair of 1.0x.
 PROC_WSS_FRACTION = 0.53
 PROC_KINDS = {"nat": "matmul", "cha": "add"}
-PROC_WORK_S = 8.0            # burner seconds a tenant brings
+PROC_WORK_S = 4.0            # burner seconds a tenant brings
 # Two handoff cycles of the working set (1.0-1.2 s each way at ~42 GiB on
 # this card): each quantum pages the set in and does ~3 s of work, so
 # each tenant is dropped at least twice. The pair checks the release and
@@ -2631,7 +2644,7 @@ def pre_repair_phase(physical: int) -> dict:
 # reach ~66 GiB, 28 would reach ~75 GiB of the ~77 GiB the MLP and two
 # CUDA contexts leave.
 UNMOD_LAYERS = 24
-UNMOD_LM_STEPS = 12
+UNMOD_LM_STEPS = 10
 UNMOD_UNGATED_STEPS = 3       # the ungated solo: the gate's host cost
 UNMOD_MLP_STEPS = 400
 UNMOD_MLP_BATCH = 1024
@@ -2802,6 +2815,418 @@ def unmod_phase() -> dict:
     return out
 
 
+# -- parallel ranks ------------------------------------------------------------
+
+# Ranks share the one card as processes under gloo (NCCL refuses two ranks
+# on one device); every collective stages through pinned host buffers.
+PAR_WORLD = 2
+PAR_ATTN = [SCORE_BATCH, LM.seq, LM.heads, LM.head_dim]
+PAR_RING_BLOCK = (SCORE_BATCH, LM.seq // PAR_WORLD, LM.heads, LM.head_dim)
+# Depth: two f32 replicas of parameters, momentum and gradients (2.4 GiB a
+# layer plus 2.5 GiB for the embedding) and the activations would fit 8
+# layers (21.6 GiB a rank on an H100), but the time limit does not: the
+# gradient all-reduce goes through gloo on the host at ~0.85 GB/s (7.3 GB
+# took ~9 s a step at 8 layers, 52 s of the phase), so 4 layers.
+PAR_LM = replace(TRAIN, depth=4, remat=True)
+PAR_LM_STEPS = 2
+PAR_MOE_LM = dict(vocab=LM.vocab, dim=LM.dim, heads=LM.heads, depth=1,
+                  seq=LM.seq, rope=True, remat=True)   # experts 8, mlp 4
+PAR_MOE_FFN = dict(experts=8, d=LM.dim, hidden=4 * LM.dim,
+                   tokens=SCORE_BATCH * LM.seq)
+PAR_PIPE = dict(stage="transformer", d=LM.dim, heads=LM.heads,
+                xs_shape=[4, 1, LM.seq, LM.dim])
+PAR_MLP = dict(model=dict(in_dim=1024, hidden_dim=4096, out_dim=256,
+                          depth=4), batch=1024, steps=3)
+PAR_TIMEOUT_S = 600
+PAR_GATE_TIMEOUT_S = 300
+PAR_GATE_TQ = 2
+# Tolerances, each with its reason:
+# - attention, tile by tile against reference_attention in f32 on the
+#   same bf16 inputs: the ring rounds its f32 result to bf16 (2**-9 an
+#   entry), Ulysses' wgmma kernels also round P and dS (K3_TILE_REL);
+PAR_ATTN_TILE_REL = 1e-2
+# - the sequence-parallel step against the same step at world 1: block
+#   merges change f32 summation order, which flips a few bf16 roundings
+#   downstream; against lm_train_step, whose attention is the bf16 wgmma
+#   route (P rounded to bf16) where the ring's is f32;
+PAR_LOSS_RTOL = {"world1": 1e-3, "lm_train_step": 5e-3}
+PAR_M_RTOL = {"world1": 1e-2, "lm_train_step": 2e-2}
+# - the MoE LM: each rank routes its own 4096 tokens with capacity 640,
+#   one rank 8192 with capacity 1280, so other tokens are dropped;
+PAR_MOE_LOSS_RTOL = 2e-2
+# - the EP layer against the per-shard reference on the same card: the
+#   experts' products run at other row counts (other cuBLAS tilings), so
+#   a hidden activation may round one bf16 step apart;
+PAR_MOE_REL = 1e-2
+# - the pipeline's stage gradients against the sequential blocks': the
+#   same bf16 products, microbatch gradients summed in another order;
+PAR_PIPE_REL = 1e-3
+# - dp x tp against one process: column shards are other cuBLAS calls.
+PAR_MLP_LOSS_RTOL, PAR_MLP_REL = 1e-3, 2e-2
+
+
+def par_lm_cases(prefix: str, world: int) -> list:
+    model = {k: getattr(PAR_LM, k) for k in (
+        "vocab", "dim", "heads", "depth", "seq", "rope", "remat")}
+    base = dict(model=model, batch=TRAIN_BATCH, steps=PAR_LM_STEPS,
+                seed=TRAIN_SEED, lr=TRAIN_LR)
+    cases = [dict(base, name=f"{prefix}lm_{a}", case="seq_lm", attn=a)
+             for a in ("ring", "ulysses")]
+    moe = dict(model=PAR_MOE_LM, batch=TRAIN_BATCH, steps=1,
+               seed=TRAIN_SEED)
+    cases.append(dict(moe, name=f"{prefix}moe_lm", case="moe_lm"))
+    if world == 1:
+        cases += [dict(base, name="lm_train_step", case="lm_single"),
+                  dict(moe, name="moe_lm_train_step",
+                       case="moe_lm_single")]
+    return cases
+
+
+def check_f32_ring_blocks(gen) -> dict:
+    """K3, K4 and K5 by the f32 (CUDA-core) route at the ring's block
+    shapes, [4, 1024, 32, 128]: the causal diagonal block and a full past
+    block, each held against its plain version (f32: 2e-5 entry by entry,
+    1e-5 tile by tile) with a nonzero LSE cotangent in the backward (the
+    ring's merge sends one), and timed beside the plain versions and
+    ``scaled_dot_product_attention`` in f32 with TF32 off (forward, and
+    its backward for K4/K5). Bounds: operations over F32_FLOPS."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, s, h, d = PAR_RING_BLOCK
+    out = {}
+    for tag, causal in (("causal_diag", True), ("full_past", False)):
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                                   device="cuda").mul_(0.5)
+                       for _ in range(4))
+        if kernel_route(q, k) != CUDA_CORE:
+            raise AssertionError("f32 blocks must take the CUDA-core route")
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        want_o, want_lse = flash_attention_reference(q, k, v, causal=causal)
+        delta = attention_delta(o, do)
+        g_lse = torch.randn((b * h, s), generator=gen,
+                            device="cuda").mul_(0.5)
+        args = (q, k, v, do, lse, delta, causal, g_lse)
+        got = (flash_backward_dq(*args), *flash_backward_dkv(*args))
+        want = flash_backward_reference(*args)
+        torch.cuda.synchronize()
+        errs = [(o - want_o).abs().max().item()] + [
+            (g - w).abs().max().item() for g, w in zip(got, want)]
+        rels = [tile_rel_err(o, want_o)] + [tile_rel_err(g, w)
+                                            for g, w in zip(got, want)]
+        torch.testing.assert_close(o, want_o, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+        if max(_excess(g, w, 2e-4) for g, w in zip(got, want)) > 0 or \
+                max(rels) > 1e-5:
+            raise AssertionError(f"f32 ring block {tag}: max abs err "
+                                 f"{errs}, tile-wise {rels}")
+        del got, want
+        flops = 2.0 * b * h * s * s * d / (2.0 if causal else 1.0)
+        io = 4 * b * s * h * d * 4
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 5)
+        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(
+            so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
+        rows = b * h * s * 4
+        for name, fn, plain, n_mm, out_bytes, lib, err in (
+                ("K3", lambda: flash_attention_lse(q, k, v, causal=causal),
+                 lambda: flash_attention_reference(q, k, v, causal=causal),
+                 2, b * s * h * d * 4 + rows, lib_f, errs[0]),
+                ("K4", lambda: flash_backward_dq(*args),
+                 lambda: flash_backward_dq_reference(*args), 3,
+                 b * s * h * d * 4, lib_b, errs[1]),
+                ("K5", lambda: flash_backward_dkv(*args),
+                 lambda: flash_backward_dkv_reference(*args), 4,
+                 2 * b * s * h * d * 4, lib_b, max(errs[2:]))):
+            ms = cuda_ms(fn, 5)
+            plain_ms = cuda_ms(plain, 2)
+            ops_ms = n_mm * flops / F32_FLOPS * 1e3
+            in_bytes = io - (b * s * h * d * 4 if name == "K3" else 0)
+            bytes_ms = (in_bytes + out_bytes + (2 * rows if name != "K3"
+                                                else 0)) \
+                / HBM_BYTES_PER_S * 1e3
+            out.setdefault(name, {})[tag] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=lib, max_abs_err=err)
+            log(f"{name} f32 ring block {tag} [{b},{s},{h},{d}] "
+                f"(cuda-core): {ms:.3f} ms ({n_mm * flops / ms / 1e9:.1f} "
+                f"TFLOP/s), plain {plain_ms:.3f} ms, bound "
+                f"{max(ops_ms, bytes_ms):.3f} ms, SDPA f32 "
+                f"{'backward ' if name != 'K3' else ''}{lib:.3f} ms; max "
+                f"abs err {err:.3g}")
+        del q, k, v, do, o, lse, args, qt, kt, vt, so
+        torch.cuda.empty_cache()
+    return out
+
+
+def _route_sum(results, cases, kernel: str, route: str) -> int:
+    return sum(r["meta"]["cases"][c]["launches"][kernel][route]
+               for r in results for c in cases if c in r["meta"]["cases"])
+
+
+def _rank_lines(tag: str, results) -> None:
+    for r in results:
+        m = r["meta"]
+        for name, rec in m["cases"].items():
+            log(f"[{tag}] rank {m['rank']} {name}: backend {rec['backend']}"
+                f"{' (host-staged)' if rec['staged'] else ''}, "
+                f"{rec['seconds']:.2f} s, peak "
+                f"{rec['peak_bytes'] / GiB:.2f} GiB, collectives "
+                + json.dumps(rec["transport"]))
+
+
+def _close(what: str, got: float, want: float, rtol: float) -> None:
+    if not math.isclose(got, want, rel_tol=rtol):
+        raise AssertionError(f"{what}: {got!r} against {want!r} (rtol "
+                             f"{rtol})")
+
+
+def _mlp_assemble(results, key: str) -> np.ndarray:
+    row = sorted((r for r in results if int(r["tp"]["coords"][0]) == 0),
+                 key=lambda r: int(r["tp"]["coords"][1]))
+    return np.concatenate([r["tp"][f"params/{key}"] for r in row],
+                          axis=1 if key.startswith("w") else 0)
+
+
+# The ring under the gate: forward only (its collectives are where a rank
+# may hold the lock while it waits), at the attention cases' shape.
+PAR_GATE_CASE = dict(impl="ring", causal=True, digest=True,
+                     dtype="bfloat16", shape=PAR_ATTN, seed=11)
+
+
+def _gated_deadlock(e: "dryrun.RankFailure") -> bool:
+    """Whether the gate's run failed as a deadlock of its gated case: a
+    rank had finished the ungated ring, not the gated one, and a
+    collective (or the run) timed out."""
+    logs = list(e.logs.values())
+    in_gated = any(f"rank {r} ungated:" in t and f"rank {r} gated:" not in t
+                   for r, t in e.logs.items())
+    timed_out = "outlived" in str(e) or any(
+        "timed out" in t.lower() for t in logs)
+    return in_gated and timed_out
+
+
+def gated_ring() -> tuple:
+    """The ring ungated and again with each rank a tenant of one private
+    scheduler (TQ PAR_GATE_TQ, lease grace 30 s,
+    TPUSHARE_FORCE_MULTIHOST=1), in one pair of ranks of their own:
+    every result's bits must be equal. Returns (results, the gate's
+    record). Any failure fails the phase; where it is the gated case's
+    deadlock (a rank that holds the lock while it waits in a collective,
+    cut by gloo's timeout), the scheduler's log is kept and the guard's
+    default refusal shown first."""
+    sock_dir = tempfile.mkdtemp(prefix="tpushare-ring-gate-")
+    sched = Scheduler(sock_dir, tq=PAR_GATE_TQ)
+    env = {"TPUSHARE_SOCK_DIR": sock_dir, "TPUSHARE_FORCE_MULTIHOST": "1",
+           "TPUSHARE_PURE_PYTHON": "1"}
+    gate = [dict(PAR_GATE_CASE, name="ungated", case="attention"),
+            dict(PAR_GATE_CASE, name="gated", case="gated_attention")]
+    try:
+        res = dryrun.spawn(PAR_WORLD, gate, device="cuda", env=env,
+                           timeout_s=PAR_GATE_TIMEOUT_S)
+    except dryrun.RankFailure as e:
+        text = sched.text()
+        CHILD_LOGS.mkdir(parents=True, exist_ok=True)
+        (CHILD_LOGS / "ring_gate_scheduler.log").write_text(text)
+        if not _gated_deadlock(e):
+            raise
+        refusal = dryrun.spawn(PAR_WORLD, [dict(name="guard", case="guard")],
+                               device="cuda", timeout_s=120)
+        raise AssertionError(
+            f"the gated ring deadlocked (the guard, unforced, gates the "
+            f"ranks: {[r['guard']['gated'] for r in refusal]}); scheduler "
+            f"log tail:\n{text[-3000:]}") from e
+    finally:
+        sched.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    for r in res:
+        a, g = r["ungated"], r["gated"]
+        diff = [k for k in a if k.startswith("sha/") and a[k] != g[k]]
+        if diff:
+            raise AssertionError(f"gated ring rank {r['meta']['rank']} "
+                                 f"differs from ungated in {diff}")
+    counts = [json.loads(r["gated"]["lock_counts"]) for r in res]
+    log(f"gated ring: equal to ungated bit for bit; lock counters per rank "
+        f"{counts}")
+    return res, {"equal": True, "lock_counts": counts,
+                 "seconds": [r["meta"]["cases"]["gated"]["seconds"]
+                             for r in res],
+                 "ungated_seconds": [r["meta"]["cases"]["ungated"]["seconds"]
+                                     for r in res]}
+
+
+def parallel_phase() -> dict:
+    """Phase 12: the parallel package as ranks sharing the one card
+    (``parallel/dryrun.py``'s spawn; gloo, host-staged collectives), each
+    result held against a world-1 run of the same code on the same card
+    or a single-process reference, by the tolerances above."""
+    out: dict = {}
+    # World 2: attention, the sequence-parallel and MoE LM steps, the EP
+    # FFN and the pipeline, in one pair of ranks; the gated ring in a
+    # second pair.
+    attn = [dict(name=f"{impl}_{'causal' if c else 'full'}",
+                 case="attention", impl=impl, causal=c, grads=True,
+                 check=True, dtype="bfloat16", shape=PAR_ATTN, seed=i)
+            for i, (impl, c) in enumerate(
+                (i_, c_) for i_ in ("ring", "ulysses")
+                for c_ in (True, False))]
+    cases = attn + par_lm_cases("", PAR_WORLD) + [
+        dict(PAR_MOE_FFN, name="moe_ffn", case="moe_ffn", check=True),
+        dict(PAR_PIPE, name="pipeline", case="pipeline", check=True)]
+    t0 = time.perf_counter()
+    w2 = dryrun.spawn(PAR_WORLD, cases, device="cuda",
+                      timeout_s=PAR_TIMEOUT_S)
+    out["world2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gate, out["gated_ring"] = gated_ring()
+    out["gate_s"] = time.perf_counter() - t0
+    _rank_lines("world 2", w2 + gate)
+    for a in attn:
+        errs = {k: v for k, v in w2[0][a["name"]].items()
+                if k.startswith("err")}
+        log(f"{a['name']} {PAR_ATTN} bf16: tile-wise error against f32 "
+            f"reference_attention {errs}")
+        if len(errs) != 4 or max(errs.values()) > PAR_ATTN_TILE_REL:
+            raise AssertionError(f"{a['name']}: {errs} (limit "
+                                 f"{PAR_ATTN_TILE_REL})")
+        out[a["name"]] = errs
+    for r in w2:
+        moe = r["moe_ffn"]
+        if moe["rel_err"] > PAR_MOE_REL:
+            raise AssertionError(f"moe_ffn rank {r['meta']['rank']}: {moe}")
+        pipe = {k: v for k, v in r["pipeline"].items()
+                if k.startswith("rel_err")}
+        if max(pipe.values()) > PAR_PIPE_REL:
+            raise AssertionError(f"pipeline rank {r['meta']['rank']}: {pipe}")
+        _close("pipeline loss", float(r["pipeline"]["losses"][0]),
+               r["pipeline"]["loss_want"], 1e-5)
+    out["moe_ffn"] = [r["moe_ffn"] for r in w2]
+    out["pipeline"] = [{k: v for k, v in r["pipeline"].items()
+                        if k != "losses"} for r in w2]
+    # Routes: the ring's f32 blocks on the CUDA cores; Ulysses and the
+    # pipeline's bf16 stages on the wgmma kernels.
+    ring = ["ring_causal", "ring_full", "lm_ring", "moe_lm", "ungated",
+            "gated"]
+    bf16 = ["ulysses_causal", "ulysses_full", "lm_ulysses", "pipeline"]
+    kernels = ("flash_attention", "flash_backward_dq", "flash_backward_dkv")
+    runs = w2 + gate
+    routes = {k: {"ring cuda-core": _route_sum(runs, ring, k, CUDA_CORE),
+                  "ring wgmma": _route_sum(runs, ring, k, WGMMA),
+                  "bf16 wgmma": _route_sum(runs, bf16, k, WGMMA),
+                  "bf16 cuda-core": _route_sum(runs, bf16, k, CUDA_CORE),
+                  "all": sum(n for r in runs
+                             for rec in r["meta"]["cases"].values()
+                             for n in rec["launches"][k].values())}
+              for k in kernels}
+    log(f"world-2 launches by route: {json.dumps(routes)}")
+    for k, rt in routes.items():
+        if rt["ring cuda-core"] == 0 or rt["ring wgmma"] or \
+                rt["bf16 wgmma"] == 0 or rt["bf16 cuda-core"]:
+            raise AssertionError(f"{k}: launches by route {rt}")
+    out["launches"] = routes
+    # World 1: the same steps at one rank, and the single-process steps.
+    t0 = time.perf_counter()
+    # (In this process: no process start, and its CUDA is warm.)
+    w1 = dryrun.run_local(par_lm_cases("", 1) + [
+        dict(PAR_MLP, name="mlp_single", case="mlp_single")],
+        device="cuda")
+    out["world1_s"] = time.perf_counter() - t0
+    _rank_lines("world 1", [{"meta": w1["meta"]}])
+    lm = {}
+    for name, ref, rtol_l, rtol_m in (
+            ("lm_ring", "lm_ring", PAR_LOSS_RTOL["world1"],
+             PAR_M_RTOL["world1"]),
+            ("lm_ulysses", "lm_ulysses", PAR_LOSS_RTOL["world1"],
+             PAR_M_RTOL["world1"]),
+            ("lm_ring", "lm_train_step", PAR_LOSS_RTOL["lm_train_step"],
+             PAR_M_RTOL["lm_train_step"]),
+            ("lm_ulysses", "lm_train_step", PAR_LOSS_RTOL["lm_train_step"],
+             PAR_M_RTOL["lm_train_step"]),
+            ("moe_lm", "moe_lm", PAR_MOE_LOSS_RTOL, 5 * PAR_MOE_LOSS_RTOL),
+            ("moe_lm", "moe_lm_train_step", PAR_MOE_LOSS_RTOL,
+             5 * PAR_MOE_LOSS_RTOL)):
+        got, want = w2[0][name], w1[ref]
+        for r in w2[1:]:
+            if r[name]["param_sum"] != got["param_sum"] or \
+                    r[name]["m_abs"] != got["m_abs"]:
+                raise AssertionError(f"{name}: the ranks' states differ")
+        for i, (a, b) in enumerate(zip(got["losses"], want["losses"])):
+            _close(f"{name} loss {i} vs {ref}", float(a), float(b), rtol_l)
+        _close(f"{name} sum|m| vs {ref}", got["m_abs"], want["m_abs"],
+               rtol_m)
+        # The parameters moved by lr x (m1 + m2): their sums may differ by
+        # a share of that move, never by more.
+        move = TRAIN_LR * (got["m_abs"] + want["m_abs"])
+        if abs(got["param_sum"] - want["param_sum"]) > 0.05 * move:
+            raise AssertionError(f"{name} param sum {got['param_sum']!r} "
+                                 f"vs {ref} {want['param_sum']!r}")
+        lm[f"{name} vs {ref}"] = {
+            "losses": [float(x) for x in got["losses"]],
+            "ref_losses": [float(x) for x in want["losses"]],
+            "m_abs": got["m_abs"], "ref_m_abs": want["m_abs"],
+            "param_sum": got["param_sum"], "ref_param_sum": want["param_sum"],
+            "step_s": [float(x) for x in got["step_s"]],
+            "ref_step_s": [float(x) for x in want["step_s"]]}
+        log(f"{name} (world 2) vs {ref}: " + json.dumps(lm[f"{name} vs "
+                                                        f"{ref}"]))
+    out["lm"] = lm
+    # World 4: dp x tp on a 2 x 2 grid against one process.
+    t0 = time.perf_counter()
+    w4 = dryrun.spawn(4, [dict(PAR_MLP, name="tp", case="mlp")],
+                      device="cuda", timeout_s=PAR_TIMEOUT_S)
+    out["world4_s"] = time.perf_counter() - t0
+    _rank_lines("world 4", w4)
+    single = w1["mlp_single"]
+    for a, b in zip(w4[0]["tp"]["losses"], single["losses"]):
+        _close("dp x tp MLP loss", float(a), float(b), PAR_MLP_LOSS_RTOL)
+    # The updates (final less initial parameters, the same seed-0 draw on
+    # this card) are what the steps computed: held norm-wise.
+    p0 = MLP(**PAR_MLP["model"]).init(0, device="cuda")
+    rels = {}
+    for k, v in p0.items():
+        v = v.cpu().numpy()
+        got = _mlp_assemble(w4, k) - v
+        want = single[f"params/{k}"] - v
+        rels[k] = float(np.linalg.norm(got - want)
+                        / max(np.linalg.norm(want), 1e-30))
+    del p0
+    log(f"dp x tp MLP (2 x 2 grid, world 4) vs train_step: losses "
+        f"{[float(x) for x in w4[0]['tp']['losses']]} vs "
+        f"{[float(x) for x in single['losses']]}; update rel err {rels}")
+    if max(rels.values()) > PAR_MLP_REL:
+        raise AssertionError(f"dp x tp MLP updates: {rels}")
+    out["mlp"] = {"losses": [float(x) for x in w4[0]["tp"]["losses"]],
+                  "ref_losses": [float(x) for x in single["losses"]],
+                  "param_rel_err": rels,
+                  "shape": [int(s) for s in w4[0]["tp"]["shape"]]}
+    out["backend"] = {n: [r["meta"]["backend"] for r in res]
+                      for n, res in (("world2", w2), ("gate", gate),
+                                     ("world4", w4))}
+    out["transport"], out["peak_gib"] = {}, {}
+    for r in runs:
+        rank = r["meta"]["rank"]
+        for name, rec in r["meta"]["cases"].items():
+            out["transport"].setdefault(rank, {})[name] = rec["transport"]
+            out["peak_gib"].setdefault(f"world2 rank {rank}", {})[name] = \
+                rec["peak_bytes"] / GiB
+    out["line"] = ("parallel ranks: " + json.dumps({
+        "attention_tile_err": {a["name"]: max(out[a["name"]].values())
+                               for a in attn},
+        "lm": {k: v["losses"] for k, v in lm.items()},
+        "moe_ffn_rel_err": [m["rel_err"] for m in out["moe_ffn"]],
+        "gated_ring": {k: v for k, v in out["gated_ring"].items()
+                       if k != "lock_counts"},
+        "seconds": {k: round(out[k], 3) for k in ("world2_s", "gate_s",
+                                                   "world1_s", "world4_s")}}))
+    log(out["line"])
+    return out
+
+
 def pre_repair_main(phases: Phases, card: str) -> int:
     """``--pre-repair``: only the oversubscribing process pair, with the
     release of each handoff's freed blocks taken out of the tenants."""
@@ -2839,6 +3264,8 @@ def main(argv=None) -> int:
     att_entry = phases.run("check flash_attention", check_attention, gen)
     dq_entry, dkv_entry = phases.run("check flash backward",
                                      check_attention_backward, gen)
+    f32_ring = phases.run("check f32 ring blocks", check_f32_ring_blocks,
+                          gen)
 
     os.environ["TPUSHARE_REQUIRE_SCHEDULER"] = "1"
     os.environ["TPUSHARE_PALLAS_MATMUL"] = "1"
@@ -2900,6 +3327,11 @@ def main(argv=None) -> int:
     finally:
         sched.stop()
         shutil.rmtree(tmp, ignore_errors=True)
+    # The ranks are processes of their own: hand them the card and the
+    # host's pinned memory this process still caches.
+    torch.cuda.empty_cache()
+    release_host_cache()
+    par = phases.run("parallel ranks", parallel_phase)
     if mm_launches == 0 or mix_launches == 0:
         raise AssertionError(f"kernel launches on the main path: matmul "
                              f"{mm_launches}, mix {mix_launches}")
@@ -2966,13 +3398,26 @@ def main(argv=None) -> int:
             "wss_bytes", "pinned_bytes", "budget", "solo_peak_bytes",
             "peak_bytes")},
         "train_check": train["check"],
-        "qos": qos, "process_pair": proc, "unmodified_pair": unmod},
+        "qos": qos, "process_pair": proc, "unmodified_pair": unmod,
+        "parallel_ranks": {k: v for k, v in par.items() if k != "line"},
+        "f32_ring_blocks": f32_ring},
         default=str))
     # The newest pairs' readings and the phase seconds again, after the
     # long line, so that the end of the output carries them.
-    for line in (qos["line"], proc["line"], unmod["line"],
+    for line in (qos["line"], proc["line"], unmod["line"], par["line"],
                  "phase seconds: " + json.dumps(phases.seconds)):
         log(line)
+    # Phase 12's launches (every rank's, every case's), and the f32 route
+    # at the ring's block shapes, beside each attention kernel's entry.
+    par_launches = [par["launches"][k]["all"] for k in (
+        "flash_attention", "flash_backward_dq", "flash_backward_dkv")]
+    f32_extra = [dict(f32_ring=dict(f32_ring[k], route=CUDA_CORE,
+                                    shape=list(PAR_RING_BLOCK),
+                                    ring_launches=par["launches"][n][
+                                        "ring cuda-core"]))
+                 for k, n in (("K3", "flash_attention"),
+                              ("K4", "flash_backward_dq"),
+                              ("K5", "flash_backward_dkv"))]
     kernels = [
         # K1 runs on the CUDA cores.
         dict(name="fused_mix", route="cuda", design=CUDA_CORE,
@@ -2988,17 +3433,18 @@ def main(argv=None) -> int:
              source="nvshare_tpu_torch/csrc/attention_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:120",
              launches=lm_launches + k3_launches + qos_launches[0]
-             + unmod_launches[0], **att_entry),
+             + unmod_launches[0] + par_launches[0], **att_entry,
+             **f32_extra[0]),
         dict(name="flash_backward_dq", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:267",
-             launches=k4_launches + qos_launches[1] + unmod_launches[1],
-             **dq_entry),
+             launches=k4_launches + qos_launches[1] + unmod_launches[1]
+             + par_launches[1], **dq_entry, **f32_extra[1]),
         dict(name="flash_backward_dkv", route="cuda",
              source="nvshare_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="nvshare_tpu/ops/attention.py:286",
-             launches=k5_launches + qos_launches[2] + unmod_launches[2],
-             **dkv_entry),
+             launches=k5_launches + qos_launches[2] + unmod_launches[2]
+             + par_launches[2], **dkv_entry, **f32_extra[2]),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -21,14 +21,20 @@ Public surface:
     ops through a ``TorchDispatchMode``;
     :mod:`nvshare_tpu_torch.autoload` — ``import
     nvshare_tpu_torch.autoload`` enables it (``TPUSHARE_DISABLE=1``: not);
-    :mod:`nvshare_tpu_torch.parallel` — the multi-process guard.
+    :mod:`nvshare_tpu_torch.parallel.guard` — the multi-process guard.
+  * :mod:`nvshare_tpu_torch.parallel` — the JAX package's sharded
+    programs as ``torch.distributed`` ranks: the mesh and dp x tp MLP
+    step, ring and Ulysses attention, expert-parallel MoE, the
+    sequence-parallel LM steps and GPipe pipelining; ``python -m
+    nvshare_tpu_torch.parallel.dryrun --world N`` runs every axis.
   * :mod:`nvshare_tpu_torch.colocate` — in-process multi-tenant harness
     (burner, LM serving and LM training workloads).
   * :mod:`nvshare_tpu_torch.models.burner` — the co-location burners.
   * :mod:`nvshare_tpu_torch.models.transformer` and
     :mod:`nvshare_tpu_torch.models.decode` — the transformer LM's scoring
     forward, KV-cache decoding and training step;
-    :mod:`nvshare_tpu_torch.models.mlp` — the MLP classifier.
+    :mod:`nvshare_tpu_torch.models.mlp` — the MLP classifier;
+    :mod:`nvshare_tpu_torch.models.moe_transformer` — the MoE LM.
   * :mod:`nvshare_tpu_torch.utils.data` (``prefetch_to_device``) and
     :mod:`nvshare_tpu_torch.utils.checkpoint` (train-state checkpoints
     over ``torch.distributed.checkpoint``).

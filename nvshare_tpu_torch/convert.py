@@ -7,8 +7,10 @@ travels as numpy arrays: :func:`varrays_from_numpy` adopts them as one
 arena's managed arrays (``VArray.numpy`` reads them back), and
 :func:`transformer_params_from_numpy`, :func:`kv_cache_from_numpy` and
 :func:`lm_state_from_numpy` make a language model's parameter, cache and
-training-state dicts of them, and :func:`mlp_params_from_numpy` an MLP's
-parameters.
+training-state dicts of them, :func:`mlp_params_from_numpy` an MLP's
+parameters, :func:`moe_lm_state_from_numpy` the MoE LM's nested training
+state, and :func:`pipeline_params_from_numpy` one rank's slice of stacked
+pipeline-stage parameters.
 """
 
 from __future__ import annotations
@@ -73,3 +75,29 @@ def mlp_params_from_numpy(params: Mapping[str, np.ndarray],
     tensors on ``device``, default ``cuda``) from numpy arrays under the
     JAX package's names (``w{i}``, ``b{i}``)."""
     return _tensors(params, torch.float32, device)
+
+
+def _nested(tree: Mapping, dtype: torch.dtype, device: DeviceLike) -> dict:
+    return {k: (_nested(v, dtype, device) if isinstance(v, Mapping)
+                else _tensors({k: v}, dtype, device)[k])
+            for k, v in tree.items()}
+
+
+def moe_lm_state_from_numpy(params: Mapping, opt_state: Mapping,
+                            device: DeviceLike = None) -> tuple[dict, dict]:
+    """A :class:`~nvshare_tpu_torch.models.moe_transformer.MoETransformer`
+    training state ``(params, {"m": momentum})`` of f32 tensors on
+    ``device`` (default ``cuda``) from the numpy leaves of a JAX
+    ``init_moe_lm_state`` pair: the dense names plus the nested ``moe{i}``
+    dicts of ``router``, ``w_up`` and ``w_down``."""
+    return (_nested(params, torch.float32, device),
+            {"m": _nested(opt_state["m"], torch.float32, device)})
+
+
+def pipeline_params_from_numpy(params: Mapping[str, np.ndarray], rank: int,
+                               device: DeviceLike = None) -> dict:
+    """Rank ``rank``'s slice [1, ...] of stacked stage parameters [S, ...]
+    (f32 tensors on ``device``, default ``cuda``): the local view a
+    pipeline rank holds, as the JAX step's ``P(axis)`` shard."""
+    return _tensors({k: np.asarray(v)[rank:rank + 1]
+                     for k, v in params.items()}, torch.float32, device)

@@ -1,6 +1,6 @@
 """Workload models of the port: the co-location burners, the
-transformer LM (scoring forward, KV-cache decode, and training) and the
-MLP classifier."""
+transformer LM (scoring forward, KV-cache decode, and training), the
+MLP classifier and the mixture-of-experts LM."""
 
 from nvshare_tpu_torch.models.burner import (  # noqa: F401
     AddBurner,
@@ -23,4 +23,11 @@ from nvshare_tpu_torch.models.transformer import (  # noqa: F401
     make_optim_lm_step,
     synthetic_tokens,
     transformer_forward,
+)
+from nvshare_tpu_torch.models.moe_transformer import (  # noqa: F401
+    MoETransformer,
+    init_moe_lm_state,
+    moe_lm_objective,
+    moe_lm_train_step,
+    moe_transformer_forward,
 )

@@ -33,7 +33,10 @@ want = {"nvshare_tpu_torch." + m for m in (
     "telemetry.check", "telemetry.dump", "telemetry.fleet",
     "telemetry.top", "autoload", "parallel", "parallel.guard",
     "models.mlp", "utils.data", "utils.checkpoint", "workloads",
-    "workloads.lm_train", "workloads.mlp_train")}
+    "workloads.lm_train", "workloads.mlp_train", "parallel.collectives",
+    "parallel.mesh", "parallel.ring_attention", "parallel.moe",
+    "parallel.seq_transformer", "parallel.pipeline", "parallel.dryrun",
+    "models.moe_transformer")}
 assert want <= set(names), sorted(want - set(names))
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -222,3 +225,46 @@ def test_gate_and_workloads_default_to_cuda_and_raise_without_it(no_cuda):
         mlp_train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         next(prefetch_to_device(iter([np.zeros(2)])))
+
+
+def test_parallel_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda):
+    from nvshare_tpu_torch.convert import (
+        moe_lm_state_from_numpy,
+        pipeline_params_from_numpy,
+    )
+    from nvshare_tpu_torch.models import MoETransformer, init_moe_lm_state
+    from nvshare_tpu_torch.parallel import (
+        Mesh,
+        dryrun,
+        init_moe_params,
+        init_pipeline_params,
+        init_ranks,
+        make_mesh,
+        make_seq_mesh,
+    )
+    from nvshare_tpu_torch.parallel.pipeline import (
+        init_transformer_stage_params,
+    )
+
+    no_card = pytest.raises(RuntimeError, match="device='cpu'")
+    model = MoETransformer(vocab=16, dim=32, heads=2, depth=1, seq=128,
+                           experts=2)
+    for call in (make_mesh, make_seq_mesh, lambda: Mesh((1,), ("seq",)),
+                 lambda: init_moe_params(2, 8, 16),
+                 lambda: init_pipeline_params(2, 8),
+                 lambda: init_transformer_stage_params(2, 8),
+                 model.init, lambda: init_moe_lm_state(model),
+                 lambda: moe_lm_state_from_numpy(
+                     {"ln_f": np.ones(4, np.float32)},
+                     {"m": {"ln_f": np.ones(4, np.float32)}}),
+                 lambda: pipeline_params_from_numpy(
+                     {"w": np.ones((2, 4, 4), np.float32)}, 0),
+                 lambda: init_ranks(0, 2, "/nonexistent/store"),
+                 lambda: dryrun.spawn(2, []),
+                 lambda: dryrun.main(["--world", "2"])):
+        with no_card:
+            call()
+    assert make_mesh(device="cpu").device.type == "cpu"
+    assert init_moe_params(2, 8, 16, device="cpu")["router"].device.type \
+        == "cpu"
