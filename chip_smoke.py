@@ -32,8 +32,11 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    f32 and 5e-2 in bf16, and tile by tile within ``BWD_TILE_REL``). At
    the main shapes a zeroed output and one with tiles skipped must fail
    the tile checks. Each case names the route it took
-   (``kernel_route``): bf16 K3, K4 and K5 run the wgmma + TMA kernels,
-   f32 the CUDA-core ones. Times from CUDA events; ``torch.matmul`` in
+   (``kernel_route``): bf16 K3, K4 and K5 at d 64 and 128 run the wgmma
+   + TMA kernels; f32, and bf16 at other widths (cases at d 36 and 96,
+   [2, 256, 2, d]), run the ``cuda-core`` route, whose K3 and K5 compute
+   on the tensor cores by the 3xTF32 split and K4 on the CUDA cores.
+   Times from CUDA events; ``torch.matmul`` in
    bf16 (with and without the casts of f32 operands),
    ``scaled_dot_product_attention`` and its backward are timed as the
    library yardsticks.
@@ -95,8 +98,9 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    twice, and K3, K4 and K5 must have launched 2 x 24, 24 and 24 times a
    step, every time by the wgmma route.
 9. The QoS pair: an LM server (``interactive:2``, the LM pair's budget
-   and request count) beside an LM trainer (``batch:1``, the training
-   pair's budget and step count), both at the widths above, in one
+   and its first QOS_REQUESTS requests) beside an LM trainer
+   (``batch:1``, the training pair's budget and step count), both at
+   the widths above, in one
    process under two private schedulers in turn, the first with
    ``TPUSHARE_QOS_POLICY=fifo`` and the second with ``wfq``, at the LM
    pair's quantum, with the fleet plane on (``TPUSHARE_FLEET=1``,
@@ -161,8 +165,14 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    scheduler's log is kept and the guard's default refusal shown. Each
    rank's backend, collectives (bytes and seconds staged), peak device
    memory and seconds are printed. Phase 3 also holds K3, K4 and K5's
-   f32 route at the ring's block shapes against their plain versions and
-   times it beside ``scaled_dot_product_attention`` in f32.
+   f32 route at the ring's block shapes against their plain versions (K3
+   and K5, on the tensor cores, twice, bit for bit, and with the zeroed
+   and tile-skipping controls) and times it beside
+   ``scaled_dot_product_attention`` in f32.
+They run in this order but for 7, which runs before 6, 11, which runs
+before 9, and 12, which runs between 9 and 10: the host takes the
+pinned shadows a pair freed back over seconds, and the next pair sizes
+itself only once it has.
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and ``{"ok": true, "device": {...}}``.
 """
@@ -266,6 +276,9 @@ DEVICE_RATIO = 0.9
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+# TF32 on the tensor cores, dense: the 3xTF32 split of the f32 route's K3
+# and K5 runs three such products a f32 product (165 TFLOP/s of f32).
+TF32_FLOPS = 495e12
 
 SCHED_DIR = REPO / "build" / "sched"
 # Whole logs of the child processes (the tenants' own output).
@@ -301,20 +314,25 @@ PAGER_ENV = {"TPUSHARE_WRITEBACK_CHUNK_BYTES": str(CHUNK_BYTES),
              "TPUSHARE_WRITEBACK_INTERVAL_S": "0.02",
              "TPUSHARE_WRITEBACK_STREAMS": "2"}
 AB_SLEEP_S = 0.03        # the reference A/B's host time between steps
-AB_QUANTA = 1.5          # quanta of work each A/B tenant brings
+AB_QUANTA = 1.2          # quanta of work each A/B tenant brings (and at
+                         # least one step a chunk): above 1, so that each
+                         # leg hands off twice
 # Quanta of device work a tenant of the burner, LM and training pairs
-# brings (plus two steps or requests): above 2, so that with both tenants
-# waiting on each other each is dropped at least twice.
+# brings (plus two steps, or one of the LM's requests): above 2, so that
+# with both tenants waiting on each other each is dropped at least twice.
 PAIR_QUANTA = 2.2
-# The serving phases: the mock decoder at the LM's cache widths.
+# The serving phases: the mock decoder at the LM's cache widths. 320
+# tokens and 8 prefill bursts keep each tenant busy for several quanta of
+# SERVE_TQ (16 s and 7 s alone on the H100), so that both are handed off
+# at least twice in the pair.
 SERVE = dict(layers=2, batch=DECODE_BATCH, max_len=2048, d_model=4096)
-SERVE_TOKENS = 480
+SERVE_TOKENS = 320
 SERVE_REQUESTS = 4
 SERVE_THINK_S = 0.01     # inter-token host work of the decode tenant
 # Prefill bursts of 2048 x 2048 activations, long enough on the card that
 # a handoff almost always finds one resident (a burst's host-side draw of
 # its input is a few percent of it).
-PREFILL = dict(bursts=12, seq=2048, steps_per_burst=2048, gap_s=0.0)
+PREFILL = dict(bursts=8, seq=2048, steps_per_burst=2048, gap_s=0.0)
 SERVE_COLD_CHUNKS = 4    # untagged arrays the decode tenant holds
 SERVE_TQ = 2
 
@@ -548,6 +566,10 @@ def check_attention(gen) -> dict:
               for sq, sk in ((256, 256), (128, 256), (256, 128))
               for dt in (torch.float32, torch.bfloat16) for c in (True,
                                                                   False)]
+    # bf16 at widths the wgmma kernels do not take: the f32 route, its rows
+    # copied by cp.async (d 96) or element by element (d 36: 72-byte rows).
+    cases += [(2, 256, 256, 2, d, torch.bfloat16, c)
+              for d in (36, 96) for c in (True, False)]
     for b, sq, sk, h, d, dtype, causal in cases:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .mul_(0.5).to(dtype) for s in (sq, sk, sk))
@@ -614,8 +636,14 @@ def _excess(got, want, tol: float) -> float:
 
 # The tight limits on tile_rel_err for K3 and for K4 and K5 against their
 # plain versions, which compute in f32 and round only their outputs.
-# f32 (the CUDA-core kernels): only the summation order differs (at most
-# 1.3e-6 read for K3 and 1.6e-7 for K4/K5 on an H100, PERF.md). bf16: the
+# f32 (the "cuda-core" route): the summation order differs, and K3 and K5
+# multiply by the 3xTF32 split, which drops each product's small x small
+# term (below 2**-22 of it) and truncates the small half (at most 2**-21
+# of an operand): 4.1e-7 to 8.3e-7 in the CPU emulation of
+# tests/test_torch_tf32x3.py, where one TF32 term alone reads 3.1e-4 to
+# 4.7e-4; the tensor cores' truncated sums add to that only over short
+# chains (csrc/tf32x3.cuh). On an H100 K3 and K5 read 7e-7 to 2.5e-6, K4
+# (CUDA cores) 1.4e-7 (PERF.md). bf16: the
 # wgmma kernels also round an operand of their last products to bf16,
 # where the plain versions keep f32: K3 its probabilities P, K5 its P^T
 # and dS^T, K4 its dS (before dS k). That is a relative rounding of at
@@ -656,6 +684,8 @@ def check_attention_backward(gen) -> tuple:
               for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
     cases += [(2, 256, 256, 2, 64, dt, True, True)
               for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 256, 256, 2, d, torch.bfloat16, True, True)
+              for d in (36, 96)]
     for b, sq, sk, h, d, dtype, causal, with_glse in cases:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .mul_(0.5).to(dtype) for s in (sq, sk, sk))
@@ -1135,7 +1165,7 @@ def pager_ab(chunks: int, budget: int, sched: Scheduler, tq: int) -> dict:
     pager, and with the pager in first-touch mode, at the burner pair's
     working set and quantum. Every leg's results must equal the solo
     run's bit for bit, and each leg must hand off at least twice."""
-    steps = max(2 * chunks, math.ceil(AB_QUANTA * tq / AB_SLEEP_S))
+    steps = max(chunks, math.ceil(AB_QUANTA * tq / AB_SLEEP_S))
     log(f"[ab] {chunks} chunks of {CHUNK_BYTES >> 20} MiB per tenant, "
         f"{steps} steps of one chunk + {AB_SLEEP_S * 1e3:.0f} ms, TQ {tq} s;"
         f" pager knobs {json.dumps(PAGER_ENV)}")
@@ -1621,10 +1651,16 @@ def measure_lm(budget: int) -> dict:
     return dict(out, request_s=res.score_s[-1] + res.decode_s[-1])
 
 
-def lm_differs(res, solo):
-    if res.checksums != solo.checksums:
-        return f"scoring checksums {res.checksums} != solo {solo.checksums}"
-    if not (res.tokens == solo.tokens).all():
+def lm_differs(res, solo, requests: int = None):
+    """What differs between ``res`` and the solo run, over the first
+    ``requests`` of its requests (all by default): each request continues
+    one seeded session, so a shorter run is the longer one's prefix."""
+    n = len(solo.checksums) if requests is None else requests
+    want = solo.checksums[:n]
+    if res.checksums != want:
+        return f"scoring checksums {res.checksums} != solo {want}"
+    if res.tokens.shape != solo.tokens[:n].shape or \
+            not (res.tokens == solo.tokens[:n]).all():
         return "decoded other tokens than solo"
     return None
 
@@ -1691,9 +1727,12 @@ def lm_phases(phases: Phases, budget: int, physical: int,
     tq = max(2, math.ceil(3.0 * probe["cycle_s"]))
     sched.set_tq(tq)
     # PAIR_QUANTA of work, within one session of LM.seq cached positions.
+    # A request is a third of a quantum, so one request is added, not the
+    # other pairs' two steps; with none, an LM tenant on the H100 was
+    # dropped only the twice its check needs.
     requests = min(LM.seq // DECODE_TOKENS,
                    max(3, math.ceil(PAIR_QUANTA * tq / probe["request_s"])
-                       + 2))
+                       + 1))
     log(f"[lm] handoff cycle {probe['cycle_s']:.3f} s "
         f"({sizes['wss_bytes'] / GiB:.2f} GiB out and back) -> TQ {tq} s; "
         f"request {probe['request_s']:.3f} s -> {requests} requests")
@@ -1994,6 +2033,10 @@ def train_phases(phases: Phases, budget: int, physical: int,
 
 QOS_SPECS = {"inter": "interactive:2", "batch": "batch:1"}
 QOS_ENV = {"TPUSHARE_FLEET": "1", "TPUSHARE_RELEASE_CHECK_S": "30"}
+# The server's requests in each leg (the LM pair's first ones; the pair
+# brings 9 on the H100): ~7 s of serving beside the trainer's ~13 s, so
+# the trainer still holds the card when the server asks for it.
+QOS_REQUESTS = 4
 FLEET_POLL_S = 0.5
 
 
@@ -2160,7 +2203,7 @@ def qos_leg(policy: str, lm: dict, train: dict, pool_bytes: int,
                             "top": run_top(sock_dir)}
             poller = FleetPoller(sock, names.values(), hook)
             report = run_colocated(
-                {tenants["inter"]: lm_workload_of(lm["requests"]),
+                {tenants["inter"]: lm_workload_of(lm["qos_requests"]),
                  tenants["batch"]: train_workload(train["steps"],
                                                   train["cfg"])},
                 timeout_s=900)
@@ -2180,7 +2223,8 @@ def qos_leg(policy: str, lm: dict, train: dict, pool_bytes: int,
         shutil.rmtree(sock_dir, ignore_errors=True)
     if not report.ok:
         raise RuntimeError(f"[qos {policy}] tenants failed: {report.errors}")
-    why = lm_differs(report.results[names["inter"]], lm["solo"])
+    why = lm_differs(report.results[names["inter"]], lm["solo"],
+                     lm["qos_requests"])
     if why:
         raise AssertionError(f"[qos {policy}] inter: {why}")
     got, want = report.results[names["batch"]], train["solo"]
@@ -2217,7 +2261,11 @@ def qos_leg(policy: str, lm: dict, train: dict, pool_bytes: int,
     def med(key):
         return statistics.median(h[key] for h in hs) if hs else None
 
-    solo_s = {"inter": lm["solo_s"], "batch": train["solo_s"]}
+    # The server's solo: the LM pair's solo wall less its later requests.
+    sr = lm["solo"]
+    solo_s = {"inter": lm["solo_s"] - sum(
+        sr.score_s[lm["qos_requests"]:] + sr.decode_s[lm["qos_requests"]:]),
+        "batch": train["solo_s"]}
     leg = {
         "policy": policy, "policy_live": live,
         "qos_preempts": stats["summary"].get("qpre", 0),
@@ -2285,9 +2333,10 @@ def qos_phase(lm: dict, train: dict, pool_bytes: int) -> dict:
     if cfg.depth < TRAIN.depth:
         train.update(run_train_solo(cfg, train["budget"], train["steps"]))
     tq = lm["tq_s"]
+    lm = dict(lm, qos_requests=min(QOS_REQUESTS, lm["requests"]))
     log(f"[qos] specs {QOS_SPECS}, TQ {tq} s, lease grace {LEASE_GRACE_S} s, "
         f"env {json.dumps(QOS_ENV)}; "
-        f"inter: {lm['requests']} requests, budget "
+        f"inter: {lm['qos_requests']} requests, budget "
         f"{lm['budget'] / GiB:.2f} GiB; batch: {train['steps']} steps at "
         f"{cfg.depth} layers, "
         f"budget {train['budget'] / GiB:.2f} GiB; pool "
@@ -2305,6 +2354,7 @@ def qos_phase(lm: dict, train: dict, pool_bytes: int) -> dict:
             f"of entitlement: {within}")
     log(line)
     return dict(legs, tq_s=tq, p50_ratio_wfq_fifo=ratio, line=line,
+                inter_requests=lm["qos_requests"],
                 wfq_within_entitlement_10pct=within, **sizes)
 
 
@@ -2315,11 +2365,14 @@ def qos_phase(lm: dict, train: dict, pool_bytes: int) -> dict:
 # only by host memory (PROC_HOST_HEADROOM), never below a pair of 1.0x.
 PROC_WSS_FRACTION = 0.53
 PROC_KINDS = {"nat": "matmul", "cha": "add"}
-PROC_WORK_S = 4.0            # burner seconds a tenant brings
+PROC_WORK_S = 2.5            # burner seconds a tenant brings
 # Two handoff cycles of the working set (1.0-1.2 s each way at ~42 GiB on
-# this card): each quantum pages the set in and does ~3 s of work, so
-# each tenant is dropped at least twice. The pair checks the release and
-# exactness; its ratio is not a yardstick at this quantum.
+# this card): each quantum pages the set in and does ~3 s of work. A
+# burner run holds the lock ~9 s besides its steps (making and paging
+# its set), so 2.5 s of steps span three quanta or more (three handoffs
+# a tenant on the H100) and each tenant is dropped at least twice. The
+# pair checks the release and exactness; its ratio is not a yardstick at
+# this quantum.
 PROC_TQ = 4
 # Host memory a tenant process adds besides its pinned shadows, on top
 # of HOST_HEADROOM: 0.6 GiB measured on the H100 host (its libraries'
@@ -2826,8 +2879,8 @@ PAR_RING_BLOCK = (SCORE_BATCH, LM.seq // PAR_WORLD, LM.heads, LM.head_dim)
 # layer plus 2.5 GiB for the embedding) and the activations would fit 8
 # layers (21.6 GiB a rank on an H100), but the time limit does not: the
 # gradient all-reduce goes through gloo on the host at ~0.85 GB/s (7.3 GB
-# took ~9 s a step at 8 layers, 52 s of the phase), so 4 layers.
-PAR_LM = replace(TRAIN, depth=4, remat=True)
+# took ~9 s a step at 8 layers, 52 s of the phase), so 2 layers.
+PAR_LM = replace(TRAIN, depth=2, remat=True)
 PAR_LM_STEPS = 2
 PAR_MOE_LM = dict(vocab=LM.vocab, dim=LM.dim, heads=LM.heads, depth=1,
                   seq=LM.seq, rope=True, remat=True)   # experts 8, mlp 4
@@ -2882,14 +2935,60 @@ def par_lm_cases(prefix: str, world: int) -> list:
     return cases
 
 
+def check_f32_nan_rows(q, k, v, do, o, lse, causal: bool, g_lse) -> None:
+    """A NaN reaches K3's and K5's outputs (f32 route) exactly where it
+    reaches the plain versions': a NaN row of q (its scores, then P, are
+    NaN) and of v (an operand of P v) in K3, a NaN row of dO in K5. The
+    NaN is written as 0x7fffffff, the one the card's arithmetic gives,
+    whose rounding to TF32 would carry into the sign without the split's
+    guard (csrc/tf32x3.cuh). The rows are chosen so that the plain
+    versions and the tiled kernels reach the same outputs: q's row only
+    its own, v's first row and dO's last every row of their (batch,
+    head)."""
+    b, s, h, d = q.shape
+    qn, vn, don = q.clone(), v.clone(), do.clone()
+    for x, at in ((qn, (1, 300, 5)), (vn, (2, 0, 7)), (don, (1, s - 1, 5))):
+        x[at].view(torch.int32).fill_(0x7FFFFFFF)
+    want_o = torch.zeros((b, s, h, d), dtype=torch.bool, device="cuda")
+    want_o[1, 300, 5] = True
+    want_o[2, :, 7] = True
+    want_lse = torch.zeros((b * h, s), dtype=torch.bool, device="cuda")
+    want_lse[1 * h + 5, 300] = True
+    want_kv = torch.zeros((b, s, h, d), dtype=torch.bool, device="cuda")
+    want_kv[1, :, 5] = True
+    args = (q, k, v, don, lse, attention_delta(o, don), causal, g_lse)
+    for what, got, plain, masks in (
+            ("K3", flash_attention_lse(qn, k, vn, causal=causal),
+             flash_attention_reference(qn, k, vn, causal=causal),
+             (want_o, want_lse)),
+            ("K5", flash_backward_dkv(*args),
+             flash_backward_dkv_reference(*args), (want_kv, want_kv))):
+        for x, y, want in zip(got, plain, masks):
+            if not (torch.equal(torch.isnan(x), want)
+                    and torch.equal(torch.isnan(y), want)):
+                raise AssertionError(
+                    f"{what} f32: NaN in {int(torch.isnan(x).sum())} "
+                    f"entries, the plain version in "
+                    f"{int(torch.isnan(y).sum())}, {int(want.sum())} "
+                    "expected")
+
+
 def check_f32_ring_blocks(gen) -> dict:
-    """K3, K4 and K5 by the f32 (CUDA-core) route at the ring's block
+    """K3, K4 and K5 by the f32 ("cuda-core") route at the ring's block
     shapes, [4, 1024, 32, 128]: the causal diagonal block and a full past
     block, each held against its plain version (f32: 2e-5 entry by entry,
     1e-5 tile by tile) with a nonzero LSE cotangent in the backward (the
     ring's merge sends one), and timed beside the plain versions and
     ``scaled_dot_product_attention`` in f32 with TF32 off (forward, and
-    its backward for K4/K5). Bounds: operations over F32_FLOPS."""
+    its backward for K4/K5). K3 and K5 multiply on the tensor cores by the
+    3xTF32 split: each runs twice on the same inputs and must give the
+    same bits, and a zeroed output and one whose later tiles are skipped
+    must fail their tile check, and a NaN in a row of q or v (K3) or of
+    dO (K5) must reach the same outputs as in the plain versions.
+    Bounds, the larger of bytes and operations: K4's operations over
+    F32_FLOPS (the CUDA cores), K3's and K5's as three TF32 products over
+    TF32_FLOPS (the design's ceiling; their CUDA-core figure is logged
+    beside it)."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2910,7 +3009,15 @@ def check_f32_ring_blocks(gen) -> dict:
         args = (q, k, v, do, lse, delta, causal, g_lse)
         got = (flash_backward_dq(*args), *flash_backward_dkv(*args))
         want = flash_backward_reference(*args)
+        # The tensor-core kernels again on the same inputs: the same bits.
+        o2, lse2 = flash_attention_lse(q, k, v, causal=causal)
+        again = flash_backward_dkv(*args)
         torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(got[1:], again))):
+            raise AssertionError(f"f32 ring block {tag}: K3 or K5 gave "
+                                 "other bits on the same inputs")
+        del o2, lse2, again
         errs = [(o - want_o).abs().max().item()] + [
             (g - w).abs().max().item() for g, w in zip(got, want)]
         rels = [tile_rel_err(o, want_o)] + [tile_rel_err(g, w)
@@ -2921,6 +3028,14 @@ def check_f32_ring_blocks(gen) -> dict:
                 max(rels) > 1e-5:
             raise AssertionError(f"f32 ring block {tag}: max abs err "
                                  f"{errs}, tile-wise {rels}")
+        for g, w in ((o, want_o), *zip(got[1:], want[1:])):
+            tile_controls(g, w, K3_TILE_REL[torch.float32])
+        check_f32_nan_rows(q, k, v, do, o, lse, causal, g_lse)
+        log(f"f32 ring block {tag}: tile-wise relative error K3 "
+            f"{rels[0]:.3g}, K4 {rels[1]:.3g}, K5 dk {rels[2]:.3g}, dv "
+            f"{rels[3]:.3g}; K3 and K5 repeat bit for bit; zeroed and "
+            "skipped tiles fail; NaN rows reach the plain versions' "
+            "outputs")
         del got, want
         flops = 2.0 * b * h * s * s * d / (2.0 if causal else 1.0)
         io = 4 * b * s * h * d * 4
@@ -2932,33 +3047,41 @@ def check_f32_ring_blocks(gen) -> dict:
         lib_b = cuda_ms(lambda: torch.autograd.grad(
             so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
         rows = b * h * s * 4
-        for name, fn, plain, n_mm, out_bytes, lib, err in (
+        for name, fn, plain, n_mm, out_bytes, lib, err, design in (
                 ("K3", lambda: flash_attention_lse(q, k, v, causal=causal),
                  lambda: flash_attention_reference(q, k, v, causal=causal),
-                 2, b * s * h * d * 4 + rows, lib_f, errs[0]),
+                 2, b * s * h * d * 4 + rows, lib_f, errs[0], "tf32x3"),
                 ("K4", lambda: flash_backward_dq(*args),
                  lambda: flash_backward_dq_reference(*args), 3,
-                 b * s * h * d * 4, lib_b, errs[1]),
+                 b * s * h * d * 4, lib_b, errs[1], "cuda-core"),
                 ("K5", lambda: flash_backward_dkv(*args),
                  lambda: flash_backward_dkv_reference(*args), 4,
-                 2 * b * s * h * d * 4, lib_b, max(errs[2:]))):
+                 2 * b * s * h * d * 4, lib_b, max(errs[2:]), "tf32x3")):
             ms = cuda_ms(fn, 5)
             plain_ms = cuda_ms(plain, 2)
-            ops_ms = n_mm * flops / F32_FLOPS * 1e3
+            cuda_core_ms = n_mm * flops / F32_FLOPS * 1e3
+            ops_ms = (3 * n_mm * flops / TF32_FLOPS * 1e3
+                      if design == "tf32x3" else cuda_core_ms)
             in_bytes = io - (b * s * h * d * 4 if name == "K3" else 0)
             bytes_ms = (in_bytes + out_bytes + (2 * rows if name != "K3"
                                                 else 0)) \
                 / HBM_BYTES_PER_S * 1e3
-            out.setdefault(name, {})[tag] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+            entry = dict(
+                design=design, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=lib, max_abs_err=err)
-            log(f"{name} f32 ring block {tag} [{b},{s},{h},{d}] "
-                f"(cuda-core): {ms:.3f} ms ({n_mm * flops / ms / 1e9:.1f} "
-                f"TFLOP/s), plain {plain_ms:.3f} ms, bound "
-                f"{max(ops_ms, bytes_ms):.3f} ms, SDPA f32 "
-                f"{'backward ' if name != 'K3' else ''}{lib:.3f} ms; max "
-                f"abs err {err:.3g}")
+            line = (f"{name} f32 ring block {tag} [{b},{s},{h},{d}] "
+                    f"({design}): {ms:.3f} ms "
+                    f"({n_mm * flops / ms / 1e9:.1f} TFLOP/s), plain "
+                    f"{plain_ms:.3f} ms, bound {entry['bound_ms']:.3f} ms")
+            if design == "tf32x3":
+                line += (" (three TF32 products), "
+                         f"{max(cuda_core_ms, bytes_ms):.3f} ms on the f32 "
+                         "CUDA cores")
+            out.setdefault(name, {})[tag] = entry
+            log(f"{line}, SDPA f32 {'backward ' if name != 'K3' else ''}"
+                f"{lib:.3f} ms; max abs err {err:.3g}")
         del q, k, v, do, o, lse, args, qt, kt, vt, so
         torch.cuda.empty_cache()
     return out
@@ -3305,9 +3428,15 @@ def main(argv=None) -> int:
                                     chunks, budget, sched, add_step, tq)
         mix_launches = fused_mix.launches.value
         ab = phases.run("pager a/b", pager_ab, chunks, budget, sched, tq)
-        lm = lm_phases(phases, budget, physical, sched)
+        # Phases 7, 11 and 12 run between the pairs that size themselves
+        # against host memory: the host takes the freed pinned shadows
+        # back over seconds, which the next pair's sizing waits for
+        # (settled_mem_available), so let it happen while they run.
         serve = phases.run("serving phases", serving_phases, sched)
+        lm = lm_phases(phases, budget, physical, sched)
         train = train_phases(phases, budget, physical, sched)
+        release_host_cache()
+        unmod = phases.run("unmodified pair", unmod_phase)
         wrappers = (flash_attention, flash_backward_dq, flash_backward_dkv)
         reset_counts(*wrappers)
         qos = phases.run("qos pair", qos_phase, dict(lm, budget=budget),
@@ -3315,23 +3444,22 @@ def main(argv=None) -> int:
         qos_launches = [fn.launches.value for fn in wrappers]
         qos_wgmma = [fn.route_launches[WGMMA].value for fn in wrappers]
         depth = qos["train_depth"]
-        want = [2 * (LM.depth * lm["requests"] + 2 * depth * train["steps"]),
+        want = [2 * (LM.depth * qos["inter_requests"]
+                     + 2 * depth * train["steps"]),
                 2 * depth * train["steps"], 2 * depth * train["steps"]]
         if qos_launches != want or qos_wgmma != want:
             raise AssertionError(f"K3/K4/K5 launched {qos_launches} times "
                                  f"({qos_wgmma} by the wgmma route) on the "
                                  f"QoS path, not {want}")
+        # The ranks are processes of their own: hand them the card and the
+        # host's pinned memory this process still caches.
+        release_host_cache()
+        par = phases.run("parallel ranks", parallel_phase)
         proc = phases.run("process pair", proc_phase, physical,
                           {"matmul": mm_step, "add": add_step}, chunks)
-        unmod = phases.run("unmodified pair", unmod_phase)
     finally:
         sched.stop()
         shutil.rmtree(tmp, ignore_errors=True)
-    # The ranks are processes of their own: hand them the card and the
-    # host's pinned memory this process still caches.
-    torch.cuda.empty_cache()
-    release_host_cache()
-    par = phases.run("parallel ranks", parallel_phase)
     if mm_launches == 0 or mix_launches == 0:
         raise AssertionError(f"kernel launches on the main path: matmul "
                              f"{mm_launches}, mix {mix_launches}")

@@ -1,35 +1,56 @@
-// Flash-attention forward for Hopper (sm_90a): exact softmax(q k^T / sqrt(d)) v
-// over [B, S, H, D] tensors, with the per-row log-sum-exp, never forming the
-// S x S score matrix in device memory.
+// Flash-attention forward for Hopper (sm_90a), the f32 route: exact
+// softmax(q k^T / sqrt(d)) v over [B, S, H, D] tensors, with the per-row
+// log-sum-exp, never forming the S x S score matrix in device memory.
 //
 // Replaces the Pallas TPU kernel nvshare_tpu/ops/attention.py `_flash_kernel`
 // (called by `_flash_forward`): online softmax over key tiles; scale =
 // 1/sqrt(d); in causal mode the q_pos >= k_pos mask (-1e30 elsewhere) and
 // no work for key tiles wholly in the future; O in q's type; LSE in f32 per
-// row (m + log l); rows with l == 0 give 0.
+// row (m + log l); rows with l == 0 give 0, and a NaN among a row's
+// scores gives NaN in its O and LSE, as in the plain version (the Pallas
+// kernel writes 0 to that O row). This is the route of f32, and
+// of bf16 at head widths other than 64 and 128 (bf16 at 64 or 128 takes the
+// wgmma kernel in attention_sm90.cu); bf16 is staged as it lies and read
+// as f32, d is zero-padded to the 64 or 128 template.
 //
-// Bound: operations. At the language model's scoring shape (B=4, S=2048,
-// H=32, D=128, causal) the function does 4*B*H*S*S*D/2 = 1.37e11 flops
-// against 0.27 GB of q, k, v, o and lse. This is the f32 route, and that of
-// bf16 at head widths other than 64 and 128 (bf16 at 64 or 128 takes the
-// wgmma kernel in attention_sm90.cu): like the Pallas kernel it upcasts q,
-// k and v to f32 and does all of its math in f32 on the CUDA cores, so its
-// own ceiling is the card's f32 rate, not the tensor cores'.
+// Bound: operations. The two products do 4*B*H*Sq*Sk*D flops (half of it
+// in causal mode), against 4 bytes an element of q, k, v, o and the LSE.
+// At the ring's blocks, [4, 1024, 32, 128] f32, that is 3.44e10 flops on a
+// causal diagonal block and 6.87e10 on a full past block against 0.27 GB:
+// 0.513 / 1.026 ms at the card's f32 CUDA-core rate (67 TFLOP/s), and
+// 0.208 / 0.417 ms for this design, three TF32 products at 495 TFLOP/s
+// (165 TFLOP/s of f32 products); the bytes take 0.08 ms.
 //
-// Design. One block of 256 threads owns one (batch, head, 64-row query
-// tile); a loop over 64-key tiles inside the block takes the place of the
-// Pallas grid's sequential key axis, and the running max m, normalizer l
-// and f32 accumulator live in registers. The q tile, the current k and v
-// tiles (converted to f32 while staged) and the tile of probabilities sit
-// in shared memory, rows padded by 4 floats so the 16-byte reads below hit
-// distinct banks. The 16 x 16 threads each own 4 query rows: for S = q k^T
-// a thread computes 4 x 4 scores (key columns strided by 16) from float4
-// reads along d; row max and row sum are shuffles over the 16 threads of a
-// row group; for P v a thread accumulates its 4 rows over D/16 output
-// columns. The inputs are read strided, as they lie in [B, S, H, D] (a view
-// into a fused qkv projection included), so the caller needs no
-// transposes; O is written contiguous [B, S, H, d]. Causal query tiles are
-// scheduled heaviest first (the last tile attends to every key).
+// Design: the products on the tensor cores by the 3xTF32 split
+// (tf32x3.cuh: each operand split into two TF32 halves as its fragment is
+// loaded, three mma.sync m16n8k8 products a step, small terms first, f32
+// accumulators), the softmax on the CUDA cores. One block of 8 warps owns
+// one (batch, head, 128-row query tile); warp w owns rows 16w..16w+15, its
+// running max m, normalizer l (a partial sum per thread, summed over the
+// row's four lanes at the end) and the [16, D] output accumulator in
+// registers. A loop over 64-key tiles takes the place of the Pallas grid's
+// sequential key axis. Per tile a warp computes S = q k^T ([16, 64], A = q
+// from shared memory, B = k), masks and exponentiates it in place, and
+// feeds P from its registers as the A operand of P v (B = v read along its
+// rows, which wgmma's K-major tf32 form cannot do). P v runs kG = 8 output
+// tiles at a time, so that 8 independent chains of mma.sync hide each
+// other's latency; each tile's product over the 64 keys starts from zero
+// and is added to the accumulator in f32, so no chain of truncating
+// tensor-core sums spans the keys (tf32x3.cuh). The q tile stays in shared
+// memory; the k and v tiles stream through a two-stage ring filled by
+// cp.async, so the next tile's copy runs under this tile's products.
+// Tiles, at D = 128 in f32: q 66 KB, two stages of k and v 132 KB, 198 KB
+// in all of the 227 KB a block may use: one block (8 warps) an SM. The
+// operands stay as they lie and are split at every fragment load (8 warps
+// each split the whole k and v tile): splitting k and v once a block into
+// shared memory leaves room for 32-key tiles only, and measured slower
+// (PERF.md §6, with the other choices measured on the card by
+// kernel_ab.py). In causal mode a warp whose rows
+// all precede a key tile skips its products, and the query tiles go
+// heaviest first (the last tile attends to every key). The inputs are read
+// strided, as they lie in [B, S, H, D] (a view into a fused qkv projection
+// included); O is written contiguous [B, S, H, d]. Each output has one
+// writer and a fixed order of sums: the same inputs give the same bits.
 //
 // C interface (bound with ctypes): returns the cudaError_t of the launch.
 
@@ -37,77 +58,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
+using namespace tf32x3;
+
+constexpr int kBQ = 128;       // query rows per block: 8 warps x 16
 constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPad = 4;        // floats of padding per shared row
+constexpr int kStages = 2;     // the k and v ring
+constexpr int kG = 8;          // output tiles of P v in flight
+constexpr int kThreads = 256;
+constexpr int kTile = 64;      // sq and sk are multiples of this
 constexpr float kNegInf = -1e30f;
 
-template <int D>
-struct Smem {
-  float q[kBQ][D + kPad];
-  float k[kBK][D + kPad];
-  float v[kBK][D + kPad];
-  float p[kBQ][kBK + kPad];
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return x;
-  } else {
-    return __float2bfloat16_rn(x);
-  }
-}
-
-// Stage rows [0, 64) of one (batch, head) slice into `dst` as f32; `src`
-// points at its row 0, column 0, rows are `row_stride` elements apart and
-// columns contiguous. Columns d..D-1 are zero. `vec`: every row start is
-// 16-byte aligned and d is a multiple of the 16-byte vector.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float (*dst)[D + kPad],
-                                          const T* src, long long row_stride,
-                                          int d, int vec) {
-  if (vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kChunks = D / kVec;
-    for (int i = threadIdx.x; i < kBQ * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c = (i % kChunks) * kVec;
-      float vals[kVec];
-      if (c < d) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) vals[j] = to_f32(e[j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) vals[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kVec; j += 4) {
-        *reinterpret_cast<float4*>(&dst[r][c + j]) =
-            make_float4(vals[j], vals[j + 1], vals[j + 2], vals[j + 3]);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i % D;
-      dst[r][c] = c < d ? to_f32(src[r * row_stride + c]) : 0.f;
-    }
-  }
-}
+struct Smem {
+  static constexpr int kLd = row_len<T, D>();
+  T q[kBQ * kLd];
+  T k[kStages][kBK * kLd];
+  T v[kStages][kBK * kLd];
+};
 
 struct Args {
   const void* q;
@@ -121,170 +92,182 @@ struct Args {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd(const Args a) {
   extern __shared__ float4 smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
-  constexpr int kCols = D / 16;  // output columns per thread
+  using S = Smem<T, D>;
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+  constexpr int kLd = S::kLd;
+  constexpr int kN = D / 8;  // 8-column tiles of the output
 
-  const int z = blockIdx.x;                     // b * heads + h
-  const int qt = gridDim.y - 1 - blockIdx.y;    // heaviest tiles first
+  const int z = blockIdx.x;                   // b * heads + h
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
   const int b = z / a.heads;
   const int h = z % a.heads;
   const int q0 = qt * kBQ;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int q_rows = min(kBQ, a.sq - q0);
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's first row
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.qsb + q0 * a.qss +
-                h * a.qsh;
-  load_tile<T, D>(sm.q, qp, a.qss, a.d, a.vec);
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
+  const T* kp = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
   // Causal: keys past this tile's last row are masked for every row.
-  const int k_end = a.causal ? min(a.sk, q0 + kBQ) : a.sk;
+  const int k_end = a.causal ? min(a.sk, q0 + q_rows) : a.sk;
   const int n_kt = (k_end + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  auto stage_kv = [&](int kt) {
     const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    load_tile<T, D>(sm.k,
-                    static_cast<const T*>(a.k) + b * a.ksb + k0 * a.kss +
-                        h * a.ksh,
-                    a.kss, a.d, a.vec);
-    load_tile<T, D>(sm.v,
-                    static_cast<const T*>(a.v) + b * a.vsb + k0 * a.vss +
-                        h * a.vsh,
-                    a.vss, a.d, a.vec);
+    stage_rows<T, D, kThreads>(sm.k[kt % kStages], kp + k0 * a.kss, a.kss,
+                               kBK, kBK, a.d, a.vec);
+    stage_rows<T, D, kThreads>(sm.v[kt % kStages], vp + k0 * a.vss, a.vss,
+                               kBK, kBK, a.d, a.vec);
+  };
+  stage_rows<T, D, kThreads>(
+      sm.q, static_cast<const T*>(a.q) + b * a.qsb + q0 * a.qss + h * a.qsh,
+      a.qss, kBQ, q_rows, a.d, a.vec);
+  if (n_kt > 0) stage_kv(0);
+  cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) stage_kv(kt + 1);  // its stage was consumed at kt - 1
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the copy just issued has landed
     __syncthreads();
-
-    // S = q k^T for rows ty*4+i and keys tx+16*j.
-    float s[4][4];
+    const int k0 = kt * kBK;
+    const T* ks = sm.k[kt % kStages];
+    const T* vs = sm.v[kt % kStages];
+    if (!a.causal || k0 <= q0 + r0 + 15) {  // some row of the warp sees a key
+      // S = q k^T: [16, 64] as 8 tiles of 8 keys.
+      float s[kBK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&sm.q[ty * 4 + i][dd]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(&sm.k[tx + 16 * j][dd]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(qa[i].x, kb[j].x, t);
-          t = fmaf(qa[i].y, kb[j].y, t);
-          t = fmaf(qa[i].z, kb[j].z, t);
-          t = fmaf(qa[i].w, kb[j].w, t);
-          s[i][j] = t;
-        }
-    }
-
-    // Online softmax, one row group of 16 threads per row.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * a.scale;
-        if (a.causal && qpos < k0 + tx + 16 * j) x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sm.p[ty * 4 + i][tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-    // acc += P v over this tile's keys; thread columns g*64 + tx*4 + t.
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pa[4];
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA qa;
+        FragB kb[kBK / 8];
+        load_a(qa, sm.q, kLd, r0, kk, lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&sm.p[ty * 4 + i][kk]);
+        for (int j = 0; j < kBK / 8; ++j)
+          load_b_cols(kb[j], ks, kLd, 8 * j, kk, lane);
+        mma3_rows(s, qa, kb);
+      }
+
+      // Online softmax on the accumulator fragments: this thread holds rows
+      // g (e = 0, 1) and g + 8 (e = 2, 3), keys 8j + 2t + (e & 1); a row's
+      // max is shuffled over its four lanes.
+      const bool diag = a.causal && k0 + kBK - 1 > q0 + r0;
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
+      for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-        for (int g = 0; g < D / 64; ++g) {
-          const float4 vb =
-              *reinterpret_cast<const float4*>(&sm.v[kk + t][g * 64 + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = t == 0 ? pa[i].x
-                            : t == 1 ? pa[i].y
-                            : t == 2 ? pa[i].z
-                                     : pa[i].w;
-            acc[i][g * 4 + 0] = fmaf(p, vb.x, acc[i][g * 4 + 0]);
-            acc[i][g * 4 + 1] = fmaf(p, vb.y, acc[i][g * 4 + 1]);
-            acc[i][g * 4 + 2] = fmaf(p, vb.z, acc[i][g * 4 + 2]);
-            acc[i][g * 4 + 3] = fmaf(p, vb.w, acc[i][g * 4 + 3]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * a.scale;
+          if (diag && q0 + r0 + g + 8 * (e >> 1) < k0 + 8 * j + 2 * t + (e & 1))
+            x = kNegInf;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - m[e >> 1]);
+          s[j][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+      // acc += P v, P from registers, kG output tiles at a time. Each
+      // 8-column tile's product over this key tile starts from zero and is
+      // added to acc here, rounding to nearest (tf32x3.cuh: the tensor
+      // cores truncate).
+      FragA pa[kBK / 8];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) a_from_c(pa[j], s[j]);
+#pragma unroll
+      for (int n0 = 0; n0 < kN; n0 += kG) {
+        float part[kG][4];
+#pragma unroll
+        for (int i = 0; i < kG; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          FragB vb[kG];
+#pragma unroll
+          for (int i = 0; i < kG; ++i)
+            load_b_rows(vb[i], vs, kLd, 8 * j, 8 * (n0 + i), lane);
+          mma3_rows(part, pa[j], vb);
+        }
+#pragma unroll
+        for (int i = 0; i < kG; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n0 + i][e] += part[i][e];
       }
     }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
-  // Flush: O = acc / l (0 where l == 0), LSE = m + log l.
+  // Flush: O = acc / l (0 where l == 0), LSE = m + log l. A NaN l (a NaN
+  // in the row's scores) gives NaN in both, as the plain version does.
   T* o = static_cast<T*>(a.o);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = r0 + g + 8 * i;
+    if (row >= q_rows) continue;
     const long long base =
-        ((static_cast<long long>(b) * a.sq + row) * a.heads + h) * a.d;
-    const float denom = fmaxf(l[i], 1e-38f);
+        ((static_cast<long long>(b) * a.sq + q0 + row) * a.heads + h) * a.d;
+    const float denom = l[i] == 0.f ? 1e-38f : l[i];
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g)
+    for (int n = 0; n < kN; ++n)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int col = g * 64 + tx * 4 + t;
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * t + c;
         if (col < a.d) {
-          const float val = l[i] > 0.f ? acc[i][g * 4 + t] / denom : 0.f;
+          const float val = l[i] == 0.f ? 0.f : acc[n][2 * i + c] / denom;
           o[base + col] = from_f32<T>(val);
         }
       }
-    if (tx == 0) {
-      a.lse[static_cast<long long>(z) * a.sq + row] = m[i] + logf(denom);
+    if (t == 0) {
+      a.lse[static_cast<long long>(z) * a.sq + q0 + row] = m[i] + logf(denom);
     }
   }
 }
 
 template <typename T, int D>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<D>));
+  const int smem = static_cast<int>(sizeof(Smem<T, D>));
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(batch) * a.heads, a.sq / kBQ);
+  const dim3 grid(static_cast<unsigned>(batch) * a.heads,
+                  (a.sq + kBQ - 1) / kBQ);
   flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -313,7 +296,7 @@ extern "C" int tpushare_flash_forward(
     long long ksh, long long vsb, long long vss, long long vsh, int causal,
     int dtype, float scale, void* stream) {
   if (batch < 0 || heads < 0 || sq < 0 || sk < 0 || d < 1 || d > 128 ||
-      sq % kBQ || sk % kBK) {
+      sq % kTile || sk % kTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || heads == 0 || sq == 0) return 0;

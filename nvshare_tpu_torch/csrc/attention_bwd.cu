@@ -1,44 +1,64 @@
-// Flash-attention backward for Hopper (sm_90a): dQ (K4) and dK/dV (K5) of
-// exact attention over [B, S, H, D] tensors, recomputing each tile of
-// probabilities from the forward's saved log-sum-exp, so the S x S score
-// matrix never reaches device memory in training either.
+// Flash-attention backward for Hopper (sm_90a), the f32 route: dQ (K4) and
+// dK/dV (K5) of exact attention over [B, S, H, D] tensors, recomputing each
+// tile of probabilities from the forward's saved log-sum-exp, so the S x S
+// score matrix never reaches device memory in training either.
 //
 // Replaces the Pallas TPU kernels nvshare_tpu/ops/attention.py
-// `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (both called by
-// `_flash_backward`). Per tile pair: s = q k^T * scale (masked where q_pos <
-// k_pos in causal mode), p = exp(s - lse), dP = dO v^T, dS = p * (dP - delta
-// + g_lse) * scale; then dQ += dS k (K4), dV += p^T dO and dK += dS^T q (K5).
-// delta = rowsum(dO * O) and g_lse (the LSE output's cotangent, or none)
-// come in per row, in f32, as in the Pallas kernels. dQ, dK and dV are
-// written contiguous [B, S, H, d] in their inputs' types.
+// `_flash_bwd_dq_kernel` (K4) and `_flash_bwd_dkv_kernel` (K5), both called
+// by `_flash_backward`. Per tile pair: s = q k^T * scale (masked where q_pos
+// < k_pos in causal mode), p = exp(s - lse), dP = dO v^T, dS = p * (dP -
+// delta + g_lse) * scale; then dQ += dS k (K4), dV += p^T dO and dK += dS^T
+// q (K5). delta = rowsum(dO * O) and g_lse (the LSE output's cotangent, or
+// none) come in per row, in f32, as in the Pallas kernels. dQ, dK and dV
+// are written contiguous [B, S, H, d] in their inputs' types. This is the
+// route of f32, and of bf16 at head widths other than 64 and 128 (bf16 at
+// 64 or 128 takes the wgmma K4 and K5 in attention_bwd_sm90.cu); bf16 is
+// read as f32, d is zero-padded to the 64 or 128 template.
 //
-// Bound: operations. At the training shape (B=4, S=2048, H=32, D=128,
-// causal) K4 does 3 products of 2*B*H*S*S*D/2 flops (2.06e11) and K5 four
-// (2.75e11), against 0.4 GB of q, k, v, dO, lse and delta and 0.07-0.13 GB
-// of outputs. Like the Pallas kernels and K3's f32 route (attention.cu),
-// these upcast to f32 and do all math in f32 on the CUDA cores, so their
-// own ceiling is the card's f32 rate. They are the f32 route, and that of
-// bf16 at head widths other than 64 and 128: bf16 at 64 or 128 takes the
-// wgmma K4 and K5 in attention_bwd_sm90.cu.
+// Bound: operations. K4 does 3 products and K5 4, each 2*B*H*Sq*Sk*D flops
+// (half in causal mode), against 4 bytes an element of q, k, v, dO, the
+// row terms and the outputs. At the ring's blocks, [4, 1024, 32, 128] f32,
+// a product is 1.72e10 flops on a causal diagonal block and 3.44e10 on a
+// full past block; at the card's f32 CUDA-core rate (67 TFLOP/s) K4 takes
+// at least 0.769 / 1.538 ms and K5 1.026 / 2.051 ms, and K5 by this
+// design's three TF32 products (495 TFLOP/s, 165 TFLOP/s of f32 products)
+// 0.417 / 0.833 ms; the bytes take 0.1 ms.
 //
-// Design. Two kernels, each output tile with exactly one writer and no
-// atomics, so the gradients are the same bits on every run (co-located
-// training must equal solo training bit for bit). A Pallas grid axis that
-// runs in order becomes a loop inside the block:
-//   K4: one block of 256 threads per (batch*head, 64-row query tile),
-//       looping over the live 64-key tiles; the q and dO tiles stay in
-//       shared memory, the dQ accumulator in registers.
-//   K5: one block per (batch*head, 64-key tile), looping over the live
-//       query tiles (from the diagonal on, in causal mode); the k and v
-//       tiles stay in shared memory, the dK and dV accumulators in
-//       registers, and p^T and dS^T of the current pair of tiles are staged
-//       in shared memory for the two products.
-// The 16 x 16 threads each own 4 rows of the block's tile: a thread
-// computes 4 x 4 entries of s and dP (columns strided by 16) from float4
-// reads along d, then accumulates its 4 rows over D/16 output columns, as
-// in K3. Shared rows are padded by 4 floats so the 16-byte reads hit
-// distinct banks. The heaviest tiles go first: the last query tiles for K4
-// and the first key tiles for K5 in causal mode.
+// Design. Two kernels, each output tile with exactly one writer, no atomics
+// and a fixed order of sums, so the gradients are the same bits on every
+// run (co-located training must equal solo training bit for bit). A Pallas
+// grid axis that runs in order becomes a loop inside the block.
+//   K4, on the CUDA cores: one block of 16 x 16 threads per (batch*head,
+//     64-row query tile), looping over the live 64-key tiles; the q and dO
+//     tiles stay in shared memory, the dQ accumulator in registers. A
+//     thread computes 4 x 4 entries of s and dP (columns strided by 16)
+//     from float4 reads along d, then accumulates its 4 rows over D/16
+//     output columns; shared rows are padded by 4 floats so the 16-byte
+//     reads hit distinct banks. The last query tiles go first in causal
+//     mode.
+//   K5, on the tensor cores by the 3xTF32 split (tf32x3.cuh: each operand
+//     split into two TF32 halves as its fragment is loaded, three mma.sync
+//     m16n8k8 products a step, small terms first, f32 accumulators). One
+//     block of 8 warps per (batch*head, 128-key tile); warp w owns keys
+//     16w..16w+15 and their [16, D] dK and dV accumulators in registers.
+//     The k and v tiles stay in shared memory; the q and dO tiles of 32
+//     rows, with their lse, delta and g_lse, stream through a two-stage
+//     ring filled by cp.async, so the next tile's copy runs under this
+//     tile's products, from the diagonal on in causal mode. Per tile a warp
+//     computes s^T = k q^T and dP^T = v dO^T ([16, 32]), turns them into
+//     p^T and dS^T in place on the CUDA cores, and feeds them from its
+//     registers as the A operands of dV += p^T dO and dK += dS^T q (B = dO
+//     and q read along their rows, which wgmma's K-major tf32 form cannot
+//     do), dV's and then dK's, kG = 8 output tiles at a time (add_rows).
+//     Those products run over the tile's 32 queries from zero and are added
+//     to dV and dK in f32, so no chain of truncating tensor-core sums spans
+//     the queries (tf32x3.cuh). Tiles, at D = 128 in f32: k and v 132 KB, two
+//     stages of q and dO 66 KB, 199 KB in all of the 227 KB a block may
+//     use. The 128 accumulator registers of a warp leave ptxas a few
+//     spills at D = 128; warp pairs that split dK and dV by columns (half
+//     the registers) measured no faster. A warp
+//     whose keys all follow a query tile skips its products; the first key
+//     tiles go first in causal mode.
 //
 // C interface (bound with ctypes): each entry point returns the
 // cudaError_t of its launch.
@@ -47,13 +67,32 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kB = 64;         // rows per tile, queries and keys alike
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPad = 4;        // floats of padding per shared row
+constexpr int kB = 64;         // K4: rows per tile, queries and keys alike
+constexpr int kThreads = 256;  // K4: 16 x 16; K5: 8 warps
+constexpr int kPad = 4;        // K4: floats of padding per shared row
+constexpr int kKeys = 128;     // K5: keys per block, 8 warps x 16
+constexpr int kQRows = 32;     // K5: query rows per ring stage
+constexpr int kStages = 2;     // K5: the q and dO ring
+constexpr int kG = 8;          // K5: output tiles of dV or dK in flight
+
+using tf32x3::a_from_c;
+using tf32x3::cp_async4;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::FragA;
+using tf32x3::FragB;
+using tf32x3::from_f32;
+using tf32x3::load_a;
+using tf32x3::load_b_cols;
+using tf32x3::load_b_rows;
+using tf32x3::mma3_rows;
+using tf32x3::row_len;
+using tf32x3::stage_rows;
+using tf32x3::to_f32;
 
 template <int D>
 struct DqSmem {
@@ -64,31 +103,19 @@ struct DqSmem {
   float ds[kB][kB + kPad];
 };
 
-template <int D>
+// K5: the block's key tile stays; q and dO tiles stream through the ring,
+// with their rows of lse, delta and g_lse.
+template <typename T, int D>
 struct DkvSmem {
-  float k[kB][D + kPad];
-  float v[kB][D + kPad];
-  float q[kB][D + kPad];
-  float dout[kB][D + kPad];
-  float pt[kB][kB + kPad];   // p^T of the current tile pair: [key][query]
-  float dst[kB][kB + kPad];  // dS^T
-  float lse[kB];
-  float dlt[kB];             // delta - g_lse
+  static constexpr int kLd = row_len<T, D>();
+  T k[kKeys * kLd];
+  T v[kKeys * kLd];
+  T q[kStages][kQRows * kLd];
+  T dout[kStages][kQRows * kLd];
+  float lse[kStages][kQRows];
+  float delta[kStages][kQRows];
+  float glse[kStages][kQRows];
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return x;
-  } else {
-    return __float2bfloat16_rn(x);
-  }
-}
 
 // Stage rows [0, 64) of one (batch, head) slice into `dst` as f32; `src`
 // points at its row 0, column 0, rows are `row_stride` elements apart and
@@ -303,83 +330,186 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(const Args a) {
                    q0 + r0, tx);
 }
 
+// acc += w m over the 8J rows of m: w is J 16 x 8 accumulator tiles (c),
+// fed from registers as A operands, m a shared tile read along its rows;
+// G of acc's 8-column tiles at a time. Each tile's product over the 8J rows
+// starts from zero and is added to acc here, rounding to nearest
+// (tf32x3.cuh: the tensor cores truncate).
+template <int G, int J, int N, typename T>
+__device__ __forceinline__ void add_rows(float (&acc)[N][4],
+                                         const float (&c)[J][4], const T* m,
+                                         int ld, int lane) {
+  FragA a[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) a_from_c(a[j], c[j]);
+#pragma unroll
+  for (int n0 = 0; n0 < N; n0 += G) {
+    float part[G][4];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      FragB b[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        load_b_rows(b[i], m, ld, 8 * j, 8 * (n0 + i), lane);
+      mma3_rows(part, a[j], b);
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + i][e] += part[i][e];
+  }
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv(const Args a) {
   extern __shared__ float4 smem_raw[];
-  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(smem_raw);
+  using S = DkvSmem<T, D>;
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+  constexpr int kLd = S::kLd;
+  constexpr int kN = D / 8;  // 8-column tiles of dK and dV
 
   const int z = blockIdx.x;   // b * heads + h
   const int kt = blockIdx.y;  // causal: the first key tiles are heaviest
   const int b = z / a.heads;
   const int h = z % a.heads;
-  const int k0 = kt * kB;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int r0 = ty * 4;
+  const int k0 = kt * kKeys;
+  const int k_rows = min(kKeys, a.sk - k0);
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's first key
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
-  load_tile<T, D>(sm.k,
-                  static_cast<const T*>(a.k) + b * a.ksb + k0 * a.kss +
-                      h * a.ksh,
-                  a.kss, a.d, a.vec);
-  load_tile<T, D>(sm.v,
-                  static_cast<const T*>(a.v) + b * a.vsb + k0 * a.vss +
-                      h * a.vsh,
-                  a.vss, a.d, a.vec);
-  float dk[4][D / 16], dv[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      dk[i][c] = 0.f;
-      dv[i][c] = 0.f;
-    }
-
+  const T* qp = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+  const T* op = static_cast<const T*>(a.dout) + b * a.osb + h * a.osh;
+  const long long row0 = static_cast<long long>(z) * a.sq;
   // Causal: query tiles wholly before this key tile see none of its keys;
   // the loop starts at the diagonal (and is empty past the last query).
-  const int n_qt = a.sq / kB;
-  const int qt0 = a.causal ? k0 / kB : 0;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kB;
-    __syncthreads();  // the previous tile's q, dO, p^T and dS^T are consumed
-    load_tile<T, D>(sm.q,
-                    static_cast<const T*>(a.q) + b * a.qsb + q0 * a.qss +
-                        h * a.qsh,
-                    a.qss, a.d, a.vec);
-    load_tile<T, D>(sm.dout,
-                    static_cast<const T*>(a.dout) + b * a.osb + q0 * a.oss +
-                        h * a.osh,
-                    a.oss, a.d, a.vec);
-    if (threadIdx.x < kB) {
-      const long long row =
-          static_cast<long long>(z) * a.sq + q0 + threadIdx.x;
-      sm.lse[threadIdx.x] = a.lse[row];
-      sm.dlt[threadIdx.x] = a.delta[row] - (a.glse ? a.glse[row] : 0.f);
+  const int n_qt = a.sq / kQRows;
+  const int qt0 = a.causal ? k0 / kQRows : 0;
+  auto stage_q = [&](int qt) {
+    const int q0 = qt * kQRows;
+    const int st = qt % kStages;
+    stage_rows<T, D, kThreads>(sm.q[st], qp + q0 * a.qss, a.qss, kQRows,
+                               kQRows, a.d, a.vec);
+    stage_rows<T, D, kThreads>(sm.dout[st], op + q0 * a.oss, a.oss, kQRows,
+                               kQRows, a.d, a.vec);
+    const int i = threadIdx.x;
+    if (i < 3 * kQRows) {
+      const int r = i % kQRows;
+      const float* src = i < kQRows ? a.lse : i < 2 * kQRows ? a.delta
+                                                             : a.glse;
+      float* dst = i < kQRows       ? sm.lse[st]
+                   : i < 2 * kQRows ? sm.delta[st]
+                                    : sm.glse[st];
+      // A null g_lse reads as zero.
+      cp_async4(dst + r, src ? src + row0 + q0 + r : a.lse + row0 + q0 + r,
+                src ? 4 : 0);
     }
-    __syncthreads();
+  };
+  stage_rows<T, D, kThreads>(
+      sm.k, static_cast<const T*>(a.k) + b * a.ksb + k0 * a.kss + h * a.ksh,
+      a.kss, kKeys, k_rows, a.d, a.vec);
+  stage_rows<T, D, kThreads>(
+      sm.v, static_cast<const T*>(a.v) + b * a.vsb + k0 * a.vss + h * a.vsh,
+      a.vss, kKeys, k_rows, a.d, a.vec);
+  if (qt0 < n_qt) stage_q(qt0);
+  cp_async_commit();
 
-    // Transposed tiles: rows are this block's keys, columns the queries.
-    float st[4][4], dpt[4][4];
-    tile_dots<D>(st, sm.k, sm.q, r0, tx);
-    tile_dots<D>(dpt, sm.v, sm.dout, r0, tx);
+  float dk[kN][4], dv[kN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < kN; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const bool masked = a.causal && q0 + col < k0 + r0 + i;
-        const float p =
-            masked ? 0.f : expf(st[i][j] * a.scale - sm.lse[col]);
-        sm.pt[r0 + i][col] = p;
-        sm.dst[r0 + i][col] = p * (dpt[i][j] - sm.dlt[col]) * a.scale;
-      }
+    for (int e = 0; e < 4; ++e) {
+      dk[n][e] = 0.f;
+      dv[n][e] = 0.f;
+    }
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    if (qt + 1 < n_qt) stage_q(qt + 1);  // its stage was consumed at qt - 1
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the copy just issued has landed
     __syncthreads();
-    tile_accumulate<D>(dv, sm.pt, sm.dout, r0, tx);  // dV += p^T dO
-    tile_accumulate<D>(dk, sm.dst, sm.q, r0, tx);    // dK += dS^T q
+    const int q0 = qt * kQRows;
+    const int st = qt % kStages;
+    const T* qs = sm.q[st];
+    const T* os = sm.dout[st];
+    // The warp's keys exist, and some query of the tile sees one of them.
+    if (r0 < k_rows && (!a.causal || q0 + kQRows - 1 >= k0 + r0)) {
+      // Transposed tiles, rows the warp's 16 keys and columns the tile's
+      // queries: s^T = k q^T and dP^T = v dO^T, 4 tiles of 8 queries.
+      float pt[kQRows / 8][4], dsT[kQRows / 8][4];
+#pragma unroll
+      for (int j = 0; j < kQRows / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pt[j][e] = 0.f;
+          dsT[j][e] = 0.f;
+        }
+#pragma unroll 2
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA fa;
+        FragB fb[kQRows / 8];
+        load_a(fa, sm.k, kLd, r0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < kQRows / 8; ++j)
+          load_b_cols(fb[j], qs, kLd, 8 * j, kk, lane);
+        mma3_rows(pt, fa, fb);
+      }
+#pragma unroll 2
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA fa;
+        FragB fb[kQRows / 8];
+        load_a(fa, sm.v, kLd, r0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < kQRows / 8; ++j)
+          load_b_cols(fb[j], os, kLd, 8 * j, kk, lane);
+        mma3_rows(dsT, fa, fb);
+      }
+      // p^T = exp(s^T * scale - lse) (0 where masked) and dS^T = p^T (dP^T
+      // - delta + g_lse) * scale, in place: this thread holds keys g (e =
+      // 0, 1) and g + 8 (e = 2, 3), queries 8j + 2t + (e & 1).
+#pragma unroll
+      for (int j = 0; j < kQRows / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const bool masked =
+              a.causal && q0 + col < k0 + r0 + g + 8 * (e >> 1);
+          const float p =
+              masked ? 0.f : expf(pt[j][e] * a.scale - sm.lse[st][col]);
+          const float dlt = sm.delta[st][col] - sm.glse[st][col];
+          pt[j][e] = p;
+          dsT[j][e] = p * (dsT[j][e] - dlt) * a.scale;
+        }
+      // dV += p^T dO and dK += dS^T q over this tile's queries.
+      add_rows<kG>(dv, pt, os, kLd, lane);
+      add_rows<kG>(dk, dsT, qs, kLd, lane);
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
-  store_rows<T, D>(static_cast<T*>(a.out0), dk, b, h, a.heads, a.sk, a.d,
-                   k0 + r0, tx);
-  store_rows<T, D>(static_cast<T*>(a.out1), dv, b, h, a.heads, a.sk, a.d,
-                   k0 + r0, tx);
+
+  T* outs[2] = {static_cast<T*>(a.out0), static_cast<T*>(a.out1)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= k_rows) continue;
+    const long long base =
+        ((static_cast<long long>(b) * a.sk + k0 + row) * a.heads + h) * a.d;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * t + c;
+        if (col < a.d) {
+          outs[0][base + col] = from_f32<T>(dk[n][2 * i + c]);
+          outs[1][base + col] = from_f32<T>(dv[n][2 * i + c]);
+        }
+      }
+  }
 }
 
 template <typename Smem>
@@ -397,11 +527,12 @@ int launch(void (*kernel)(const Args), const Args& a, int batch, int tiles,
 template <typename T>
 int dispatch(bool dkv, const Args& a, int batch, cudaStream_t stream) {
   if (dkv) {
+    const int tiles = (a.sk + kKeys - 1) / kKeys;
     if (a.d <= 64)
-      return launch<DkvSmem<64>>(flash_bwd_dkv<T, 64>, a, batch, a.sk / kB,
-                                 stream);
-    return launch<DkvSmem<128>>(flash_bwd_dkv<T, 128>, a, batch, a.sk / kB,
-                                stream);
+      return launch<DkvSmem<T, 64>>(flash_bwd_dkv<T, 64>, a, batch, tiles,
+                                    stream);
+    return launch<DkvSmem<T, 128>>(flash_bwd_dkv<T, 128>, a, batch, tiles,
+                                   stream);
   }
   if (a.d <= 64)
     return launch<DqSmem<64>>(flash_bwd_dq<T, 64>, a, batch, a.sq / kB,

@@ -7,7 +7,8 @@ seconds, not minutes). Libraries land in ``build/torch_ext/`` at the repo
 root, named by a hash of the source, every header in ``csrc/`` and the
 flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. :func:`build` starts one ``nvcc`` per source at once and
-waits for all of them.
+waits for all of them. :func:`use_sources` points the package at another
+copy of ``csrc/`` (a variant under test, ``kernel_ab.py``).
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -88,17 +89,21 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    key = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+def library_path(name: str, csrc: Optional[Path] = None) -> Path:
+    csrc = CSRC if csrc is None else Path(csrc)
+    key = hashlib.sha256((csrc / SOURCES[name]).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         key.update(header.name.encode() + header.read_bytes())
     key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES),
-          ptxas_verbose: bool = False) -> Dict[str, dict]:
+          ptxas_verbose: bool = False,
+          csrc: Optional[Path] = None) -> Dict[str, dict]:
     """Compile the named sources, one ``nvcc`` each, all started together.
+    ``csrc``: the directory of the sources, by default the one
+    :func:`use_sources` set (``csrc/``).
 
     Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is 0 for a
     library that was already built. ``ptxas_verbose`` adds ``-Xptxas=-v``
@@ -106,17 +111,18 @@ def build(names: Iterable[str] = tuple(SOURCES),
     not change the binary, so it is not part of the hash. Raises with the
     compiler's output if any build fails.
     """
+    csrc = CSRC if csrc is None else Path(csrc)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     results: Dict[str, dict] = {}
     t0 = time.perf_counter()
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             results[name] = {"path": str(out), "seconds": 0.0, "log": ""}
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), "-o", str(tmp), str(CSRC / SOURCES[name]),
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc(), "-o", str(tmp), str(csrc / SOURCES[name]),
                *NVCC_FLAGS]
         if ptxas_verbose:
             cmd.insert(1, "-Xptxas=-v")
@@ -136,6 +142,16 @@ def build(names: Iterable[str] = tuple(SOURCES),
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return results
+
+
+def use_sources(csrc: Path) -> None:
+    """Build and load the kernels from ``csrc`` from now on: a directory
+    laid out as ``csrc/``. The libraries loaded so far stay loaded but are
+    no longer handed out."""
+    global CSRC
+    with _lock:
+        CSRC = Path(csrc).resolve()
+        _libs.clear()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -173,3 +173,18 @@ def test_a_header_edit_changes_every_library_path(tmp_path, monkeypatch):
     assert all(before[n] != after[n] for n in _build.SOURCES)
     # An unchanged tree hashes the same.
     assert after == {n: _build.library_path(n) for n in _build.SOURCES}
+
+
+def test_use_sources_points_the_build_at_a_copy(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    source = csrc / "attention.cu"
+    source.write_text(source.read_text() + "\n// a variant\n")
+    monkeypatch.setattr(_build, "CSRC", _build.CSRC)     # restored after
+    monkeypatch.setattr(_build, "_libs", {"attention": object()})
+    tree = _build.library_path("attention")
+    variant = _build.library_path("attention", csrc)
+    assert variant != tree
+    _build.use_sources(csrc)
+    assert _build.library_path("attention") == variant
+    assert _build._libs == {}           # the tree's library is not handed out
