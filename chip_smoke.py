@@ -6,7 +6,8 @@
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 ``make``/``g++``; exits non-zero without printing a result otherwise.
 
-Phases (each one's seconds are printed; any failure exits non-zero):
+Phases (each one's seconds are printed, and the script's total at the
+end; any failure exits non-zero):
 
 1. Environment: PyTorch and CUDA versions, the card's name and power
    limit, host ``MemAvailable``.
@@ -34,8 +35,8 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    the tile checks. Each case names the route it took
    (``kernel_route``): bf16 K3, K4 and K5 at d 64 and 128 run the wgmma
    + TMA kernels; f32, and bf16 at other widths (cases at d 36 and 96,
-   [2, 256, 2, d]), run the ``cuda-core`` route, whose K3 and K5 compute
-   on the tensor cores by the 3xTF32 split and K4 on the CUDA cores.
+   [2, 256, 2, d]), run the ``tf32x3`` route, whose K3, K4 and K5
+   compute on the tensor cores by the 3xTF32 split.
    Times from CUDA events; ``torch.matmul`` in
    bf16 (with and without the casts of f32 operands),
    ``scaled_dot_product_attention`` and its backward are timed as the
@@ -158,16 +159,16 @@ Phases (each one's seconds are printed; any failure exits non-zero):
    ``moe_lm_train_step`` and the MLP's ``train_step``, which the world-2
    losses and state sums (and the world-4 dp x tp MLP on a 2 x 2 grid)
    are held to, by the tolerances stated at PAR_*. The ring's K3-K5
-   launches must take the CUDA-core route, Ulysses' and the pipeline's
+   launches must take the 3xTF32 route, Ulysses' and the pipeline's
    the wgmma route. The same two ranks then run the ring with each a tenant of one
    private scheduler (``TPUSHARE_FORCE_MULTIHOST=1``, TQ PAR_GATE_TQ):
    its bits must equal the ungated ring's; if it deadlocks, the
    scheduler's log is kept and the guard's default refusal shown. Each
    rank's backend, collectives (bytes and seconds staged), peak device
    memory and seconds are printed. Phase 3 also holds K3, K4 and K5's
-   f32 route at the ring's block shapes against their plain versions (K3
-   and K5, on the tensor cores, twice, bit for bit, and with the zeroed
-   and tile-skipping controls) and times it beside
+   f32 route at the ring's block shapes against their plain versions (on
+   the tensor cores, each twice, bit for bit, with the zeroed and
+   tile-skipping controls and NaN rows) and times it beside
    ``scaled_dot_product_attention`` in f32.
 They run in this order but for 7, which runs before 6, 11, which runs
 before 9, and 12, which runs between 9 and 10: the host takes the
@@ -195,8 +196,10 @@ from dataclasses import replace
 from pathlib import Path
 from unittest import mock
 
-import numpy as np
-import torch
+STARTED = time.perf_counter()  # the script's total counts the imports
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
@@ -239,7 +242,7 @@ from nvshare_tpu_torch.models.transformer import (  # noqa: E402
 )
 from nvshare_tpu_torch.ops import _build  # noqa: E402
 from nvshare_tpu_torch.ops.attention import (  # noqa: E402
-    CUDA_CORE,
+    TF32X3,
     WGMMA,
     kernel_route,
 )
@@ -636,22 +639,23 @@ def _excess(got, want, tol: float) -> float:
 
 # The tight limits on tile_rel_err for K3 and for K4 and K5 against their
 # plain versions, which compute in f32 and round only their outputs.
-# f32 (the "cuda-core" route): the summation order differs, and K3 and K5
+# f32 (the "tf32x3" route): the summation order differs, and K3-K5
 # multiply by the 3xTF32 split, which drops each product's small x small
 # term (below 2**-22 of it) and truncates the small half (at most 2**-21
-# of an operand): 4.1e-7 to 8.3e-7 in the CPU emulation of
+# of an operand): 4.0e-7 to 8.3e-7 in the CPU emulation of
 # tests/test_torch_tf32x3.py, where one TF32 term alone reads 3.1e-4 to
 # 4.7e-4; the tensor cores' truncated sums add to that only over short
-# chains (csrc/tf32x3.cuh). On an H100 K3 and K5 read 7e-7 to 2.5e-6, K4
-# (CUDA cores) 1.4e-7 (PERF.md). bf16: the
-# wgmma kernels also round an operand of their last products to bf16,
-# where the plain versions keep f32: K3 its probabilities P, K5 its P^T
-# and dS^T, K4 its dS (before dS k). That is a relative rounding of at
-# most 2**-9 = 2.0e-3 an entry, averaged over each sum, on top of the
-# output's own rounding to bf16 (2.6e-3 to 3.6e-3 read for K3 and K5 at
-# every check shape and layer, PERF.md; the CUDA-core K4, which rounded
-# only its output, read at most 8e-4). 1e-2 holds these with room, and a
-# zeroed or skipped tile (1.0) fails it by two orders of magnitude.
+# chains (csrc/tf32x3.cuh). On an H100 K3, K4 and K5 read 7e-7 to 2.5e-6
+# (K4 7.8e-7 to 2.4e-6; on the CUDA cores it read 1.2e-7), PERF.md.
+# bf16: the wgmma kernels also round an operand of their last products
+# to bf16, where the plain versions keep f32: K3 its probabilities P, K5
+# its P^T and dS^T, K4 its dS (before dS k). That is a relative rounding
+# of at most 2**-9 = 2.0e-3 an entry, averaged over each sum, on top of
+# the output's own rounding to bf16 (2.6e-3 to 3.6e-3 read for K3 and K5
+# at every check shape and layer, PERF.md; the 3xTF32 K4 at d 36 and 96,
+# which rounds only its output, read at most 1e-4). 1e-2 holds these with
+# room, and a zeroed or skipped tile (1.0) fails it by two orders of
+# magnitude.
 K3_TILE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 BWD_TILE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -2936,33 +2940,50 @@ def par_lm_cases(prefix: str, world: int) -> list:
 
 
 def check_f32_nan_rows(q, k, v, do, o, lse, causal: bool, g_lse) -> None:
-    """A NaN reaches K3's and K5's outputs (f32 route) exactly where it
-    reaches the plain versions': a NaN row of q (its scores, then P, are
-    NaN) and of v (an operand of P v) in K3, a NaN row of dO in K5. The
-    NaN is written as 0x7fffffff, the one the card's arithmetic gives,
-    whose rounding to TF32 would carry into the sign without the split's
-    guard (csrc/tf32x3.cuh). The rows are chosen so that the plain
-    versions and the tiled kernels reach the same outputs: q's row only
-    its own, v's first row and dO's last every row of their (batch,
-    head)."""
+    """A NaN reaches K3's, K4's and K5's outputs (f32 route) exactly where
+    it reaches the plain versions': a NaN row of q (its scores, then P,
+    are NaN) and of v (an operand of P v) in K3; a NaN row of q, one of
+    dO, and key 0 of k, each alone, in K4; a NaN row of dO in K5. The NaN
+    is written as 0x7fffffff, the one the card's arithmetic gives, whose
+    rounding to TF32 would carry into the sign without the split's guard
+    (csrc/tf32x3.cuh). The rows are chosen so that the plain versions and
+    the tiled kernels reach the same outputs: q's row and dO's row in K4
+    only their own dQ row, key 0 every dQ row of its (batch, head) (every
+    causal row sees key 0), v's first row and dO's last every row of
+    their (batch, head) in K3 and K5."""
     b, s, h, d = q.shape
-    qn, vn, don = q.clone(), v.clone(), do.clone()
-    for x, at in ((qn, (1, 300, 5)), (vn, (2, 0, 7)), (don, (1, s - 1, 5))):
+    qn, kn, vn, don = q.clone(), k.clone(), v.clone(), do.clone()
+    for x, at in ((qn, (1, 300, 5)), (kn, (3, 0, 2)), (vn, (2, 0, 7)),
+                  (don, (1, s - 1, 5))):
         x[at].view(torch.int32).fill_(0x7FFFFFFF)
-    want_o = torch.zeros((b, s, h, d), dtype=torch.bool, device="cuda")
-    want_o[1, 300, 5] = True
-    want_o[2, :, 7] = True
+
+    def rows(*cells):
+        want = torch.zeros((b, s, h, d), dtype=torch.bool, device="cuda")
+        for at in cells:
+            want[at] = True
+        return want
+
     want_lse = torch.zeros((b * h, s), dtype=torch.bool, device="cuda")
     want_lse[1 * h + 5, 300] = True
-    want_kv = torch.zeros((b, s, h, d), dtype=torch.bool, device="cuda")
-    want_kv[1, :, 5] = True
-    args = (q, k, v, don, lse, attention_delta(o, don), causal, g_lse)
-    for what, got, plain, masks in (
-            ("K3", flash_attention_lse(qn, k, vn, causal=causal),
-             flash_attention_reference(qn, k, vn, causal=causal),
-             (want_o, want_lse)),
-            ("K5", flash_backward_dkv(*args),
-             flash_backward_dkv_reference(*args), (want_kv, want_kv))):
+    delta_n = attention_delta(o, don)
+    args = (q, k, v, don, lse, delta_n, causal, g_lse)
+    dq_cases = [(f"K4 ({name})", (x, y, z, w, lse, dl, causal, g_lse), want)
+                for name, x, y, z, w, dl, want in (
+                    ("q row", qn, k, v, do, attention_delta(o, do),
+                     rows((1, 300, 5))),
+                    ("dO row", q, k, v, don, delta_n, rows((1, s - 1, 5))),
+                    ("key 0", q, kn, v, do, attention_delta(o, do),
+                     rows((3, slice(None), 2))))]
+    cases = [("K3", flash_attention_lse(qn, k, vn, causal=causal),
+              flash_attention_reference(qn, k, vn, causal=causal),
+              (rows((1, 300, 5), (2, slice(None), 7)), want_lse))]
+    cases += [(what, (flash_backward_dq(*a),),
+               (flash_backward_dq_reference(*a),), (want,))
+              for what, a, want in dq_cases]
+    want_kv = rows((1, slice(None), 5))
+    cases.append(("K5", flash_backward_dkv(*args),
+                  flash_backward_dkv_reference(*args), (want_kv, want_kv)))
+    for what, got, plain, masks in cases:
         for x, y, want in zip(got, plain, masks):
             if not (torch.equal(torch.isnan(x), want)
                     and torch.equal(torch.isnan(y), want)):
@@ -2974,21 +2995,21 @@ def check_f32_nan_rows(q, k, v, do, o, lse, causal: bool, g_lse) -> None:
 
 
 def check_f32_ring_blocks(gen) -> dict:
-    """K3, K4 and K5 by the f32 ("cuda-core") route at the ring's block
+    """K3, K4 and K5 by the f32 ("tf32x3") route at the ring's block
     shapes, [4, 1024, 32, 128]: the causal diagonal block and a full past
     block, each held against its plain version (f32: 2e-5 entry by entry,
     1e-5 tile by tile) with a nonzero LSE cotangent in the backward (the
     ring's merge sends one), and timed beside the plain versions and
     ``scaled_dot_product_attention`` in f32 with TF32 off (forward, and
-    its backward for K4/K5). K3 and K5 multiply on the tensor cores by the
-    3xTF32 split: each runs twice on the same inputs and must give the
-    same bits, and a zeroed output and one whose later tiles are skipped
-    must fail their tile check, and a NaN in a row of q or v (K3) or of
-    dO (K5) must reach the same outputs as in the plain versions.
-    Bounds, the larger of bytes and operations: K4's operations over
-    F32_FLOPS (the CUDA cores), K3's and K5's as three TF32 products over
-    TF32_FLOPS (the design's ceiling; their CUDA-core figure is logged
-    beside it)."""
+    its backward for K4/K5). All three multiply on the tensor cores by
+    the 3xTF32 split: each runs twice on the same inputs and must give
+    the same bits, a zeroed output and one whose later tiles are skipped
+    must fail their tile check, and a NaN in a row of q or v (K3), in a
+    row of q or dO or in key 0 of k (K4), or in a row of dO (K5) must
+    reach the same outputs as in the plain versions (check_f32_nan_rows).
+    Bounds, the larger of bytes and operations: the operations as three
+    TF32 products over TF32_FLOPS (the design's ceiling; the f32
+    CUDA-core figure, over F32_FLOPS, is logged beside it)."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2999,8 +3020,8 @@ def check_f32_ring_blocks(gen) -> dict:
         q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
                                    device="cuda").mul_(0.5)
                        for _ in range(4))
-        if kernel_route(q, k) != CUDA_CORE:
-            raise AssertionError("f32 blocks must take the CUDA-core route")
+        if kernel_route(q, k) != TF32X3:
+            raise AssertionError("f32 blocks must take the 3xTF32 route")
         o, lse = flash_attention_lse(q, k, v, causal=causal)
         want_o, want_lse = flash_attention_reference(q, k, v, causal=causal)
         delta = attention_delta(o, do)
@@ -3009,13 +3030,13 @@ def check_f32_ring_blocks(gen) -> dict:
         args = (q, k, v, do, lse, delta, causal, g_lse)
         got = (flash_backward_dq(*args), *flash_backward_dkv(*args))
         want = flash_backward_reference(*args)
-        # The tensor-core kernels again on the same inputs: the same bits.
+        # The kernels again on the same inputs: the same bits.
         o2, lse2 = flash_attention_lse(q, k, v, causal=causal)
-        again = flash_backward_dkv(*args)
+        again = (flash_backward_dq(*args), *flash_backward_dkv(*args))
         torch.cuda.synchronize()
         if not (torch.equal(o, o2) and torch.equal(lse, lse2)
-                and all(torch.equal(x, y) for x, y in zip(got[1:], again))):
-            raise AssertionError(f"f32 ring block {tag}: K3 or K5 gave "
+                and all(torch.equal(x, y) for x, y in zip(got, again))):
+            raise AssertionError(f"f32 ring block {tag}: K3, K4 or K5 gave "
                                  "other bits on the same inputs")
         del o2, lse2, again
         errs = [(o - want_o).abs().max().item()] + [
@@ -3028,12 +3049,12 @@ def check_f32_ring_blocks(gen) -> dict:
                 max(rels) > 1e-5:
             raise AssertionError(f"f32 ring block {tag}: max abs err "
                                  f"{errs}, tile-wise {rels}")
-        for g, w in ((o, want_o), *zip(got[1:], want[1:])):
+        for g, w in ((o, want_o), *zip(got, want)):
             tile_controls(g, w, K3_TILE_REL[torch.float32])
         check_f32_nan_rows(q, k, v, do, o, lse, causal, g_lse)
         log(f"f32 ring block {tag}: tile-wise relative error K3 "
             f"{rels[0]:.3g}, K4 {rels[1]:.3g}, K5 dk {rels[2]:.3g}, dv "
-            f"{rels[3]:.3g}; K3 and K5 repeat bit for bit; zeroed and "
+            f"{rels[3]:.3g}; K3, K4 and K5 repeat bit for bit; zeroed and "
             "skipped tiles fail; NaN rows reach the plain versions' "
             "outputs")
         del got, want
@@ -3047,38 +3068,36 @@ def check_f32_ring_blocks(gen) -> dict:
         lib_b = cuda_ms(lambda: torch.autograd.grad(
             so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
         rows = b * h * s * 4
-        for name, fn, plain, n_mm, out_bytes, lib, err, design in (
+        for name, fn, plain, n_mm, out_bytes, lib, err in (
                 ("K3", lambda: flash_attention_lse(q, k, v, causal=causal),
                  lambda: flash_attention_reference(q, k, v, causal=causal),
-                 2, b * s * h * d * 4 + rows, lib_f, errs[0], "tf32x3"),
+                 2, b * s * h * d * 4 + rows, lib_f, errs[0]),
                 ("K4", lambda: flash_backward_dq(*args),
                  lambda: flash_backward_dq_reference(*args), 3,
-                 b * s * h * d * 4, lib_b, errs[1], "cuda-core"),
+                 b * s * h * d * 4, lib_b, errs[1]),
                 ("K5", lambda: flash_backward_dkv(*args),
                  lambda: flash_backward_dkv_reference(*args), 4,
-                 2 * b * s * h * d * 4, lib_b, max(errs[2:]), "tf32x3")):
+                 2 * b * s * h * d * 4, lib_b, max(errs[2:]))):
             ms = cuda_ms(fn, 5)
             plain_ms = cuda_ms(plain, 2)
             cuda_core_ms = n_mm * flops / F32_FLOPS * 1e3
-            ops_ms = (3 * n_mm * flops / TF32_FLOPS * 1e3
-                      if design == "tf32x3" else cuda_core_ms)
+            ops_ms = 3 * n_mm * flops / TF32_FLOPS * 1e3
             in_bytes = io - (b * s * h * d * 4 if name == "K3" else 0)
             bytes_ms = (in_bytes + out_bytes + (2 * rows if name != "K3"
                                                 else 0)) \
                 / HBM_BYTES_PER_S * 1e3
             entry = dict(
-                design=design, ms=ms, plain_ms=plain_ms,
+                design=TF32X3, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=lib, max_abs_err=err)
             line = (f"{name} f32 ring block {tag} [{b},{s},{h},{d}] "
-                    f"({design}): {ms:.3f} ms "
+                    f"({TF32X3}): {ms:.3f} ms "
                     f"({n_mm * flops / ms / 1e9:.1f} TFLOP/s), plain "
                     f"{plain_ms:.3f} ms, bound {entry['bound_ms']:.3f} ms")
-            if design == "tf32x3":
-                line += (" (three TF32 products), "
-                         f"{max(cuda_core_ms, bytes_ms):.3f} ms on the f32 "
-                         "CUDA cores")
+            line += (" (three TF32 products), "
+                     f"{max(cuda_core_ms, bytes_ms):.3f} ms on the f32 "
+                     "CUDA cores")
             out.setdefault(name, {})[tag] = entry
             log(f"{line}, SDPA f32 {'backward ' if name != 'K3' else ''}"
                 f"{lib:.3f} ms; max abs err {err:.3g}")
@@ -3231,25 +3250,25 @@ def parallel_phase() -> dict:
     out["moe_ffn"] = [r["moe_ffn"] for r in w2]
     out["pipeline"] = [{k: v for k, v in r["pipeline"].items()
                         if k != "losses"} for r in w2]
-    # Routes: the ring's f32 blocks on the CUDA cores; Ulysses and the
+    # Routes: the ring's f32 blocks by the 3xTF32 kernels; Ulysses and the
     # pipeline's bf16 stages on the wgmma kernels.
     ring = ["ring_causal", "ring_full", "lm_ring", "moe_lm", "ungated",
             "gated"]
     bf16 = ["ulysses_causal", "ulysses_full", "lm_ulysses", "pipeline"]
     kernels = ("flash_attention", "flash_backward_dq", "flash_backward_dkv")
     runs = w2 + gate
-    routes = {k: {"ring cuda-core": _route_sum(runs, ring, k, CUDA_CORE),
+    routes = {k: {"ring tf32x3": _route_sum(runs, ring, k, TF32X3),
                   "ring wgmma": _route_sum(runs, ring, k, WGMMA),
                   "bf16 wgmma": _route_sum(runs, bf16, k, WGMMA),
-                  "bf16 cuda-core": _route_sum(runs, bf16, k, CUDA_CORE),
+                  "bf16 tf32x3": _route_sum(runs, bf16, k, TF32X3),
                   "all": sum(n for r in runs
                              for rec in r["meta"]["cases"].values()
                              for n in rec["launches"][k].values())}
               for k in kernels}
     log(f"world-2 launches by route: {json.dumps(routes)}")
     for k, rt in routes.items():
-        if rt["ring cuda-core"] == 0 or rt["ring wgmma"] or \
-                rt["bf16 wgmma"] == 0 or rt["bf16 cuda-core"]:
+        if rt["ring tf32x3"] == 0 or rt["ring wgmma"] or \
+                rt["bf16 wgmma"] == 0 or rt["bf16 tf32x3"]:
             raise AssertionError(f"{k}: launches by route {rt}")
     out["launches"] = routes
     # World 1: the same steps at one rank, and the single-process steps.
@@ -3533,22 +3552,23 @@ def main(argv=None) -> int:
     # The newest pairs' readings and the phase seconds again, after the
     # long line, so that the end of the output carries them.
     for line in (qos["line"], proc["line"], unmod["line"], par["line"],
-                 "phase seconds: " + json.dumps(phases.seconds)):
+                 "phase seconds: " + json.dumps(phases.seconds),
+                 f"script total: {time.perf_counter() - STARTED:.1f} s"):
         log(line)
     # Phase 12's launches (every rank's, every case's), and the f32 route
     # at the ring's block shapes, beside each attention kernel's entry.
     par_launches = [par["launches"][k]["all"] for k in (
         "flash_attention", "flash_backward_dq", "flash_backward_dkv")]
-    f32_extra = [dict(f32_ring=dict(f32_ring[k], route=CUDA_CORE,
+    f32_extra = [dict(f32_ring=dict(f32_ring[k], route=TF32X3,
                                     shape=list(PAR_RING_BLOCK),
                                     ring_launches=par["launches"][n][
-                                        "ring cuda-core"]))
+                                        "ring tf32x3"]))
                  for k, n in (("K3", "flash_attention"),
                               ("K4", "flash_backward_dq"),
                               ("K5", "flash_backward_dkv"))]
     kernels = [
         # K1 runs on the CUDA cores.
-        dict(name="fused_mix", route="cuda", design=CUDA_CORE,
+        dict(name="fused_mix", route="cuda", design="cuda cores",
              source="nvshare_tpu_torch/csrc/mix.cu",
              replaces="nvshare_tpu/ops/mix.py:42",
              launches=mix_launches + proc_k1,

@@ -7,8 +7,8 @@ Each DIR holds a copy of ``nvshare_tpu_torch/csrc`` (``attention.cu``,
 ``attention_bwd.cu`` and the headers), edited as a variant. Every copy is
 built at once by the package's own build (``ops/_build.py``, with
 ``-Xptxas=-v``: registers and spills are printed), then K3
-(``flash_attention_lse``) and K5 (``flash_backward_dkv``) of each run in
-turns on the same inputs at the
+(``flash_attention_lse``), K4 (``flash_backward_dq``) and K5
+(``flash_backward_dkv``) of each run in turns on the same inputs at the
 ring's blocks, [4, 1024, 32, 128] f32, causal diagonal and full past, two
 rounds: tile-wise error against the plain versions, whether the outputs
 equal the first copy's bit for bit, and milliseconds by CUDA events. The
@@ -66,25 +66,31 @@ def main(argv) -> int:
         want_o, lse = tatt.flash_attention_reference(q, k, v, causal=causal)
         args = (q, k, v, do, lse, tatt.attention_delta(want_o, do), causal,
                 g_lse)
-        want = tatt.flash_backward_dkv_reference(*args)
+        want = tatt.flash_backward_reference(*args)
         first = None
         for rnd in range(2):
             for dd in dirs:
                 _build.use_sources(dd)
                 outs = (*tatt.flash_attention_lse(q, k, v, causal=causal),
+                        tatt.flash_backward_dq(*args),
                         *tatt.flash_backward_dkv(*args))
                 torch.cuda.synchronize()
                 first = outs if first is None else first
-                same = all(torch.equal(x, y) for x, y in zip(outs, first))
+                # o and lse (K3), dq (K4), dk and dv (K5)
+                eq = [torch.equal(x, y) for x, y in zip(outs, first)]
+                same = dict(K3=eq[0] and eq[1], K4=eq[2],
+                            K5=eq[3] and eq[4])
                 errs = [tile_rel_err(outs[0], want_o)] + [
                     tile_rel_err(g, w) for g, w in zip(outs[2:], want)]
                 k3 = cs.cuda_ms(lambda: tatt.flash_attention_lse(
                     q, k, v, causal=causal), 10)
+                k4 = cs.cuda_ms(lambda: tatt.flash_backward_dq(*args), 10)
                 k5 = cs.cuda_ms(lambda: tatt.flash_backward_dkv(*args), 10)
-                print(f"{tag} round {rnd} {dd.name}: K3 {k3:.3f} ms, K5 "
-                      f"{k5:.3f} ms; bits equal to {dirs[0].name}'s: {same};"
-                      f" tile-wise K3 {errs[0]:.3g}, K5 dk {errs[1]:.3g}, "
-                      f"dv {errs[2]:.3g}", flush=True)
+                print(f"{tag} round {rnd} {dd.name}: K3 {k3:.3f} ms, K4 "
+                      f"{k4:.3f} ms, K5 {k5:.3f} ms; bits equal to "
+                      f"{dirs[0].name}'s: {same}; tile-wise K3 "
+                      f"{errs[0]:.3g}, K4 {errs[1]:.3g}, K5 dk "
+                      f"{errs[2]:.3g}, dv {errs[3]:.3g}", flush=True)
         del q, k, v, do, args, want, first, outs
         torch.cuda.empty_cache()
     return 0

@@ -19,28 +19,40 @@
 // (half in causal mode), against 4 bytes an element of q, k, v, dO, the
 // row terms and the outputs. At the ring's blocks, [4, 1024, 32, 128] f32,
 // a product is 1.72e10 flops on a causal diagonal block and 3.44e10 on a
-// full past block; at the card's f32 CUDA-core rate (67 TFLOP/s) K4 takes
-// at least 0.769 / 1.538 ms and K5 1.026 / 2.051 ms, and K5 by this
-// design's three TF32 products (495 TFLOP/s, 165 TFLOP/s of f32 products)
-// 0.417 / 0.833 ms; the bytes take 0.1 ms.
+// full past block; by this design's three TF32 products (495 TFLOP/s, 165
+// TFLOP/s of f32 products) K4 takes at least 0.312 / 0.625 ms and K5 0.417
+// / 0.833 ms (at the card's f32 CUDA-core rate, 67 TFLOP/s, 0.769 / 1.538
+// and 1.026 / 2.051 ms); the bytes take 0.1 ms.
 //
-// Design. Two kernels, each output tile with exactly one writer, no atomics
-// and a fixed order of sums, so the gradients are the same bits on every
-// run (co-located training must equal solo training bit for bit). A Pallas
-// grid axis that runs in order becomes a loop inside the block.
-//   K4, on the CUDA cores: one block of 16 x 16 threads per (batch*head,
-//     64-row query tile), looping over the live 64-key tiles; the q and dO
-//     tiles stay in shared memory, the dQ accumulator in registers. A
-//     thread computes 4 x 4 entries of s and dP (columns strided by 16)
-//     from float4 reads along d, then accumulates its 4 rows over D/16
-//     output columns; shared rows are padded by 4 floats so the 16-byte
-//     reads hit distinct banks. The last query tiles go first in causal
-//     mode.
-//   K5, on the tensor cores by the 3xTF32 split (tf32x3.cuh: each operand
-//     split into two TF32 halves as its fragment is loaded, three mma.sync
-//     m16n8k8 products a step, small terms first, f32 accumulators). One
-//     block of 8 warps per (batch*head, 128-key tile); warp w owns keys
-//     16w..16w+15 and their [16, D] dK and dV accumulators in registers.
+// Design. Two kernels on the tensor cores by the 3xTF32 split (tf32x3.cuh:
+// each operand split into two TF32 halves as its fragment is loaded, three
+// mma.sync m16n8k8 products a step, small terms first, f32 accumulators),
+// p and dS on the CUDA cores. Each output tile has exactly one writer, no
+// atomics and a fixed order of sums, so the gradients are the same bits on
+// every run (co-located training must equal solo training bit for bit). A
+// Pallas grid axis that runs in order becomes a loop inside the block.
+//   K4: one block of 8 warps per (batch*head, 128-row query tile); warp w
+//     owns rows 16w..16w+15 and their [16, D] dQ accumulator in registers.
+//     The q and dO tiles, with their rows of lse, delta and g_lse, stay in
+//     shared memory; k and v stream in 32-key stages through a two-stage
+//     ring filled by cp.async, so the next stage's copy runs under this
+//     one's products, up to the tile's last row in causal mode. Per stage a
+//     warp computes s = q k^T and dP = dO v^T ([16, 32], one chain over D
+//     each, in one loop), turns them into p and dS in place, and feeds dS
+//     from its registers as the A operand of dQ += dS k (B = k read along
+//     its rows, which wgmma's K-major tf32 form cannot do), kG = 8 output
+//     tiles at a time (add_rows). That product runs over the stage's 32
+//     keys from zero and is added to dQ in f32, so no chain of truncating
+//     tensor-core sums spans the keys (tf32x3.cuh). Tiles, at D = 128 in
+//     f32: q and dO 132 KB, two stages of k and v 66 KB, 200 KB in all of
+//     the 227 KB a block may use. A 64-row tile (4 warps) with 64-key
+//     stages, s and dP in two loops over D, and the loop over D unrolled
+//     by 2 (K3's and K5's) measured slower (PERF.md §6). A tile of sq % 128 = 64 stages its second half as zeros and
+//     writes none of it. A warp whose rows all precede a key stage skips
+//     its products; the last query tiles go first in causal mode.
+//   K5: one block of 8 warps per (batch*head, 128-key tile); warp w owns
+//     keys 16w..16w+15 and their [16, D] dK and dV accumulators in
+//     registers.
 //     The k and v tiles stay in shared memory; the q and dO tiles of 32
 //     rows, with their lse, delta and g_lse, stream through a two-stage
 //     ring filled by cp.async, so the next tile's copy runs under this
@@ -71,13 +83,14 @@
 
 namespace {
 
-constexpr int kB = 64;         // K4: rows per tile, queries and keys alike
-constexpr int kThreads = 256;  // K4: 16 x 16; K5: 8 warps
-constexpr int kPad = 4;        // K4: floats of padding per shared row
+constexpr int kTile = 64;      // sq and sk are multiples of this
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kRows = 128;     // K4: query rows per block, 8 warps x 16
+constexpr int kKeyRows = 32;   // K4: keys per ring stage
 constexpr int kKeys = 128;     // K5: keys per block, 8 warps x 16
 constexpr int kQRows = 32;     // K5: query rows per ring stage
-constexpr int kStages = 2;     // K5: the q and dO ring
-constexpr int kG = 8;          // K5: output tiles of dV or dK in flight
+constexpr int kStages = 2;     // K4: the k and v ring; K5: the q and dO ring
+constexpr int kG = 8;          // output tiles of dQ, dV or dK in flight
 
 using tf32x3::a_from_c;
 using tf32x3::cp_async4;
@@ -92,15 +105,19 @@ using tf32x3::load_b_rows;
 using tf32x3::mma3_rows;
 using tf32x3::row_len;
 using tf32x3::stage_rows;
-using tf32x3::to_f32;
 
-template <int D>
+// K4: the block's q and dO tiles stay, with their rows of lse, delta and
+// g_lse; k and v tiles stream through the ring.
+template <typename T, int D>
 struct DqSmem {
-  float q[kB][D + kPad];
-  float dout[kB][D + kPad];
-  float k[kB][D + kPad];
-  float v[kB][D + kPad];
-  float ds[kB][kB + kPad];
+  static constexpr int kLd = row_len<T, D>();
+  T q[kRows * kLd];
+  T dout[kRows * kLd];
+  T k[kStages][kKeyRows * kLd];
+  T v[kStages][kKeyRows * kLd];
+  float lse[kRows];
+  float delta[kRows];
+  float glse[kRows];
 };
 
 // K5: the block's key tile stays; q and dO tiles stream through the ring,
@@ -117,135 +134,6 @@ struct DkvSmem {
   float glse[kStages][kQRows];
 };
 
-// Stage rows [0, 64) of one (batch, head) slice into `dst` as f32; `src`
-// points at its row 0, column 0, rows are `row_stride` elements apart and
-// columns contiguous. Columns d..D-1 are zero. `vec`: every row start is
-// 16-byte aligned and d is a multiple of the 16-byte vector.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float (*dst)[D + kPad],
-                                          const T* src, long long row_stride,
-                                          int d, int vec) {
-  if (vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kChunks = D / kVec;
-    for (int i = threadIdx.x; i < kB * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c = (i % kChunks) * kVec;
-      float vals[kVec];
-      if (c < d) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) vals[j] = to_f32(e[j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) vals[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kVec; j += 4) {
-        *reinterpret_cast<float4*>(&dst[r][c + j]) =
-            make_float4(vals[j], vals[j + 1], vals[j + 2], vals[j + 3]);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < kB * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i % D;
-      dst[r][c] = c < d ? to_f32(src[r * row_stride + c]) : 0.f;
-    }
-  }
-}
-
-// out[i][j] = sum over the D columns of a[row0 + i] . b[tx + 16 j] for the
-// thread's 4 rows of `a` and 4 rows of `b`.
-template <int D>
-__device__ __forceinline__ void tile_dots(float (&out)[4][4],
-                                          const float (*a)[D + kPad],
-                                          const float (*b)[D + kPad],
-                                          int row0, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-  for (int dd = 0; dd < D; dd += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(&a[row0 + i][dd]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(&b[tx + 16 * j][dd]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t = out[i][j];
-        t = fmaf(av[i].x, bv[j].x, t);
-        t = fmaf(av[i].y, bv[j].y, t);
-        t = fmaf(av[i].z, bv[j].z, t);
-        t = fmaf(av[i].w, bv[j].w, t);
-        out[i][j] = t;
-      }
-  }
-}
-
-// acc[i][g*4 + t] += sum over kk of w[row0 + i][kk] * m[kk][g*64 + tx*4 + t]:
-// the thread's 4 rows of a [64 x 64] weight tile times a [64 x D] tile.
-template <int D>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[4][D / 16],
-                                                const float (*w)[kB + kPad],
-                                                const float (*m)[D + kPad],
-                                                int row0, int tx) {
-#pragma unroll 2
-  for (int kk = 0; kk < kB; kk += 4) {
-    float4 wa[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      wa[i] = *reinterpret_cast<const float4*>(&w[row0 + i][kk]);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-#pragma unroll
-      for (int g = 0; g < D / 64; ++g) {
-        const float4 mb =
-            *reinterpret_cast<const float4*>(&m[kk + t][g * 64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float x = t == 0   ? wa[i].x
-                          : t == 1 ? wa[i].y
-                          : t == 2 ? wa[i].z
-                                   : wa[i].w;
-          acc[i][g * 4 + 0] = fmaf(x, mb.x, acc[i][g * 4 + 0]);
-          acc[i][g * 4 + 1] = fmaf(x, mb.y, acc[i][g * 4 + 1]);
-          acc[i][g * 4 + 2] = fmaf(x, mb.z, acc[i][g * 4 + 2]);
-          acc[i][g * 4 + 3] = fmaf(x, mb.w, acc[i][g * 4 + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Write the thread's 4 rows of a [64 x D] accumulator to rows row0.. of
-// one (batch, head) slice of a contiguous [B, S, H, d] output.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][D / 16],
-                                           int b, int h, int heads, int seq,
-                                           int d, int row0, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long base =
-        ((static_cast<long long>(b) * seq + row0 + i) * heads + h) * d;
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int col = g * 64 + tx * 4 + t;
-        if (col < d) out[base + col] = from_f32<T>(acc[i][g * 4 + t]);
-      }
-  }
-}
-
 struct Args {
   const void* q;
   const void* k;
@@ -260,75 +148,6 @@ struct Args {
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
   float scale;
 };
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq(const Args a) {
-  extern __shared__ float4 smem_raw[];
-  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
-
-  const int z = blockIdx.x;                   // b * heads + h
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
-  const int b = z / a.heads;
-  const int h = z % a.heads;
-  const int q0 = qt * kB;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int r0 = ty * 4;
-
-  load_tile<T, D>(sm.q,
-                  static_cast<const T*>(a.q) + b * a.qsb + q0 * a.qss +
-                      h * a.qsh,
-                  a.qss, a.d, a.vec);
-  load_tile<T, D>(sm.dout,
-                  static_cast<const T*>(a.dout) + b * a.osb + q0 * a.oss +
-                      h * a.osh,
-                  a.oss, a.d, a.vec);
-  float lse[4], dlt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = static_cast<long long>(z) * a.sq + q0 + r0 + i;
-    lse[i] = a.lse[row];
-    dlt[i] = a.delta[row] - (a.glse ? a.glse[row] : 0.f);
-  }
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-
-  // Causal: keys past this tile's last row are masked for every row.
-  const int k_end = a.causal ? min(a.sk, q0 + kB) : a.sk;
-  const int n_kt = (k_end + kB - 1) / kB;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // the previous tile's k and dS are consumed
-    load_tile<T, D>(sm.k,
-                    static_cast<const T*>(a.k) + b * a.ksb + k0 * a.kss +
-                        h * a.ksh,
-                    a.kss, a.d, a.vec);
-    load_tile<T, D>(sm.v,
-                    static_cast<const T*>(a.v) + b * a.vsb + k0 * a.vss +
-                        h * a.vsh,
-                    a.vss, a.d, a.vec);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dots<D>(s, sm.q, sm.k, r0, tx);
-    tile_dots<D>(dp, sm.dout, sm.v, r0, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool masked = a.causal && q0 + r0 + i < k0 + tx + 16 * j;
-        const float p = masked ? 0.f : expf(s[i][j] * a.scale - lse[i]);
-        sm.ds[r0 + i][tx + 16 * j] = p * (dp[i][j] - dlt[i]) * a.scale;
-      }
-    __syncthreads();
-    tile_accumulate<D>(acc, sm.ds, sm.k, r0, tx);  // dQ += dS k
-  }
-  store_rows<T, D>(static_cast<T*>(a.out0), acc, b, h, a.heads, a.sq, a.d,
-                   q0 + r0, tx);
-}
 
 // acc += w m over the 8J rows of m: w is J 16 x 8 accumulator tiles (c),
 // fed from registers as A operands, m a shared tile read along its rows;
@@ -361,6 +180,143 @@ __device__ __forceinline__ void add_rows(float (&acc)[N][4],
     for (int i = 0; i < G; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n0 + i][e] += part[i][e];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(const Args a) {
+  extern __shared__ float4 smem_raw[];
+  using S = DqSmem<T, D>;
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+  constexpr int kLd = S::kLd;
+  constexpr int kN = D / 8;         // 8-column tiles of dQ
+  constexpr int kJ = kKeyRows / 8;  // 8-key tiles of s, dP and dS
+
+  const int z = blockIdx.x;                   // b * heads + h
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
+  const int b = z / a.heads;
+  const int h = z % a.heads;
+  const int q0 = qt * kRows;
+  const int q_rows = min(kRows, a.sq - q0);
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's first row
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const T* kp = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
+  const long long row0 = static_cast<long long>(z) * a.sq + q0;
+  // Causal: keys past this tile's last row are masked for every row.
+  const int k_end = a.causal ? min(a.sk, q0 + q_rows) : a.sk;
+  const int n_kt = (k_end + kKeyRows - 1) / kKeyRows;
+  auto stage_kv = [&](int kt) {
+    const int k0 = kt * kKeyRows;
+    stage_rows<T, D, kThreads>(sm.k[kt % kStages], kp + k0 * a.kss, a.kss,
+                                 kKeyRows, kKeyRows, a.d, a.vec);
+    stage_rows<T, D, kThreads>(sm.v[kt % kStages], vp + k0 * a.vss, a.vss,
+                                 kKeyRows, kKeyRows, a.d, a.vec);
+  };
+  // The rows from q_rows on (the second half of a tile of sq % 128 = 64)
+  // stage as zeros and are never written.
+  stage_rows<T, D, kThreads>(
+      sm.q, static_cast<const T*>(a.q) + b * a.qsb + q0 * a.qss + h * a.qsh,
+      a.qss, kRows, q_rows, a.d, a.vec);
+  stage_rows<T, D, kThreads>(
+      sm.dout,
+      static_cast<const T*>(a.dout) + b * a.osb + q0 * a.oss + h * a.osh,
+      a.oss, kRows, q_rows, a.d, a.vec);
+  for (int i = threadIdx.x; i < 3 * kRows; i += kThreads) {
+    const int r = i % kRows;
+    const float* src = i < kRows ? a.lse : i < 2 * kRows ? a.delta : a.glse;
+    float* dst = i < kRows ? sm.lse : i < 2 * kRows ? sm.delta : sm.glse;
+    // A null g_lse reads as zero, as do the rows past q_rows.
+    const bool live = src != nullptr && r < q_rows;
+    cp_async4(dst + r, live ? src + row0 + r : a.lse, live ? 4 : 0);
+  }
+  if (n_kt > 0) stage_kv(0);
+  cp_async_commit();
+
+  float dq[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) stage_kv(kt + 1);  // its stage was consumed at kt - 1
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the copy just issued has landed
+    __syncthreads();
+    const int k0 = kt * kKeyRows;
+    const T* ks = sm.k[kt % kStages];
+    const T* vs = sm.v[kt % kStages];
+    // The warp's rows exist, and one of them sees a key of the tile.
+    if (r0 < q_rows && (!a.causal || k0 <= q0 + r0 + 15)) {
+      // s = q k^T and dP = dO v^T, [16, 32] as 4 tiles of 8 keys each, in
+      // one loop over D: 8 independent chains.
+      float s[kJ][4], dp[kJ][4];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+#pragma unroll 4
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA fa;
+        FragB fb[kJ];
+        load_a(fa, sm.q, kLd, r0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+          load_b_cols(fb[j], ks, kLd, 8 * j, kk, lane);
+        mma3_rows(s, fa, fb);
+        load_a(fa, sm.dout, kLd, r0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+          load_b_cols(fb[j], vs, kLd, 8 * j, kk, lane);
+        mma3_rows(dp, fa, fb);
+      }
+      // p = exp(s * scale - lse) (0 where masked) and dS = p (dP - delta +
+      // g_lse) * scale, in place in s: this thread holds rows g (e = 0, 1)
+      // and g + 8 (e = 2, 3), keys 8j + 2t + (e & 1).
+      float lse[2], dlt[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + g + 8 * i;
+        lse[i] = sm.lse[row];
+        dlt[i] = sm.delta[row] - sm.glse[row];
+      }
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool masked = a.causal && q0 + r0 + g + 8 * (e >> 1) <
+                                              k0 + 8 * j + 2 * t + (e & 1);
+          const float p =
+              masked ? 0.f : expf(s[j][e] * a.scale - lse[e >> 1]);
+          s[j][e] = p * (dp[j][e] - dlt[e >> 1]) * a.scale;
+        }
+      // dQ += dS k over this stage's keys (k read along its rows).
+      add_rows<kG>(dq, s, ks, kLd, lane);
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  T* out = static_cast<T*>(a.out0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= q_rows) continue;
+    const long long base =
+        ((static_cast<long long>(b) * a.sq + q0 + row) * a.heads + h) * a.d;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * t + c;
+        if (col < a.d) out[base + col] = from_f32<T>(dq[n][2 * i + c]);
+      }
   }
 }
 
@@ -534,11 +490,11 @@ int dispatch(bool dkv, const Args& a, int batch, cudaStream_t stream) {
     return launch<DkvSmem<T, 128>>(flash_bwd_dkv<T, 128>, a, batch, tiles,
                                    stream);
   }
+  const int tiles = (a.sq + kRows - 1) / kRows;
   if (a.d <= 64)
-    return launch<DqSmem<64>>(flash_bwd_dq<T, 64>, a, batch, a.sq / kB,
-                              stream);
-  return launch<DqSmem<128>>(flash_bwd_dq<T, 128>, a, batch, a.sq / kB,
-                             stream);
+    return launch<DqSmem<T, 64>>(flash_bwd_dq<T, 64>, a, batch, tiles, stream);
+  return launch<DqSmem<T, 128>>(flash_bwd_dq<T, 128>, a, batch, tiles,
+                                stream);
 }
 
 bool aligned16(const void* p, long long stride_elems, int itemsize) {
@@ -554,7 +510,7 @@ int run(bool dkv, const void* q, const void* k, const void* v,
         long long vss, long long vsh, long long osb, long long oss,
         long long osh, int causal, int dtype, float scale, void* stream) {
   if (batch < 0 || heads < 0 || sq < 0 || sk < 0 || d < 1 || d > 128 ||
-      sq % kB || sk % kB) {
+      sq % kTile || sk % kTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || heads == 0 || (dkv ? sk : sq) == 0) return 0;

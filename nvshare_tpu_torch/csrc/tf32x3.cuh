@@ -1,7 +1,7 @@
 // Building blocks of the f32 route's tensor-core kernels (attention.cu K3,
-// attention_bwd.cu K5): f32 products on Hopper's tensor cores by the 3xTF32
-// split, `mma.sync` fragments loaded from shared memory by hand, and the
-// `cp.async` copies that fill their shared-memory rings.
+// attention_bwd.cu K4 and K5): f32 products on Hopper's tensor cores by
+// the 3xTF32 split, `mma.sync` fragments loaded from shared memory by
+// hand, and the `cp.async` copies that fill their shared-memory rings.
 //
 // The split. Every f32 operand x of a product is split once, as its
 // fragment is loaded: big = x rounded to TF32 (10 mantissa bits, to
@@ -21,16 +21,18 @@
 // their plain versions on an H100 (limit 1e-5); a model that truncates
 // each mma's result to 24 significant bits reads the same on the CPU
 // (tests/test_torch_tf32x3.py). So no chain spans a long axis: K3's P v
-// over one 64-key tile and K5's products over one 32-query tile (24 and
-// 12 mma.sync) start from zero and are added to the running f32
-// accumulators on the CUDA cores, which round to nearest (7e-7 to 2.5e-6
-// read). Products over D (48 mma.sync at D = 128) stay one chain.
+// over one 64-key tile, K4's dS k over one 32-key stage and K5's products
+// over one 32-query tile (24, 12 and 12 mma.sync) start from zero and are
+// added to the running f32 accumulators on the CUDA cores, which round to
+// nearest (7e-7 to 2.5e-6 read). Products over D (48 mma.sync at D =
+// 128) stay one chain.
 //
 // The instruction is mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32:
 // one warp, A 16 x 8 and B 8 x 8 in registers, C 16 x 8 in f32. wgmma's
-// tf32 form takes both operands K-major only, but P v (K3), p^T dO and
-// dS^T q (K5) read v, dO and q along their rows; mma.sync takes any layout
-// because its fragments are loaded here element by element. Fragment
+// tf32 form takes both operands K-major only, but P v (K3), dS k (K4),
+// p^T dO and dS^T q (K5) read v, k, dO and q along their rows; mma.sync
+// takes any layout because its fragments are loaded here element by
+// element. Fragment
 // layouts (PTX ISA, m16n8k8 .tf32), with g = lane / 4 and t = lane % 4:
 //   A (row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 //   B (col): b0 (k = t, n = g), b1 (k = t + 4, n = g)
@@ -156,10 +158,10 @@ __device__ __forceinline__ void load_b_cols(FragB& f, const T* tile, int ld,
   split(to_f32(p[4]), f.big[1], f.small[1]);
 }
 
-// B (k x n) from a tile that holds k along its rows (v for P v, dO and q
-// for p^T dO and dS^T q): rows k0..k0+7 in the permuted order that
-// a_from_c gives A (k = t is row k0 + 2t, k = t + 4 row k0 + 2t + 1),
-// columns n0..n0+7.
+// B (k x n) from a tile that holds k along its rows (v for P v, k for dS
+// k, dO and q for p^T dO and dS^T q): rows k0..k0+7 in the permuted
+// order that a_from_c gives A (k = t is row k0 + 2t, k = t + 4 row k0 +
+// 2t + 1), columns n0..n0+7.
 template <typename T>
 __device__ __forceinline__ void load_b_rows(FragB& f, const T* tile, int ld,
                                             int k0, int n0, int lane) {

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -105,8 +106,9 @@ def build(names: Iterable[str] = tuple(SOURCES),
     ``csrc``: the directory of the sources, by default the one
     :func:`use_sources` set (``csrc/``).
 
-    Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is 0 for a
-    library that was already built. ``ptxas_verbose`` adds ``-Xptxas=-v``
+    Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is the
+    source's own ``nvcc`` wall time, 0 for a library that was already
+    built. ``ptxas_verbose`` adds ``-Xptxas=-v``
     (registers, shared memory and spills per kernel, in ``log``); it does
     not change the binary, so it is not part of the hash. Raises with the
     compiler's output if any build fails.
@@ -129,16 +131,24 @@ def build(names: Iterable[str] = tuple(SOURCES),
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+
+    def wait(proc):
+        log, _ = proc.communicate()
+        return log, time.perf_counter() - t0
+
+    # One waiter a compiler, so that each source's time is its own.
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        waited = {name: pool.submit(wait, proc)
+                  for name, (proc, _, _) in procs.items()}
     failed = []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        log, seconds = waited[name].result()
         if proc.returncode != 0:
             failed.append(f"--- nvcc {SOURCES[name]} (rc "
                           f"{proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, out)
-        results[name] = {"path": str(out),
-                         "seconds": time.perf_counter() - t0, "log": log}
+        results[name] = {"path": str(out), "seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return results

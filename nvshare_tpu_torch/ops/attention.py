@@ -12,16 +12,14 @@ and width, never by trying one and falling back:
   TMA loads into a ring of shared-memory stages, ``wgmma`` products of
   bf16 into f32. They round the probabilities P (K3, K5) and dS (K4, K5)
   to bf16 before their products, where the plain versions stay in f32.
-- ``"cuda-core"``: f32, and bf16 of any other ``d <= 128`` (staged as
-  f32). The forward (``csrc/attention.cu``) and K5 (``csrc/attention_bwd.cu``)
-  multiply on the tensor cores by the 3xTF32 split (each f32 operand as two
-  TF32 halves, three ``mma.sync`` products into f32, ``csrc/tf32x3.cuh``);
-  K4 (``csrc/attention_bwd.cu``) computes in f32 on the CUDA cores, as the
-  Pallas kernels do. Softmax, masks and dS stay in f32 on the CUDA cores.
-  All three hold the f32 plain versions within 1e-5 tile by tile: the
-  split drops each product's small x small term, the sums run in another
-  order. The route keeps its name (and its launch counts their key) while
-  K4 still runs on the CUDA cores.
+- ``"tf32x3"``: f32, and bf16 of any other ``d <= 128`` (staged as it
+  lies, read as f32). The forward (``csrc/attention.cu``), K4 and K5 (both
+  ``csrc/attention_bwd.cu``) multiply on the tensor cores by the 3xTF32
+  split (each f32 operand as two TF32 halves, three ``mma.sync`` products
+  into f32, ``csrc/tf32x3.cuh``). Softmax, masks and dS stay in f32 on the
+  CUDA cores. All three hold the f32 plain versions within 1e-5 tile by
+  tile: the split drops each product's small x small term, the sums run
+  in another order.
 
 q, k and v are read strided as they lie (a view into a fused qkv
 projection needs no copy). On CPU or meta tensors the wrappers run
@@ -150,7 +148,7 @@ def _kernel_shapes_ok(sq: int, sk: int, d: int) -> bool:
 
 
 WGMMA = "wgmma+tma"
-CUDA_CORE = "cuda-core"
+TF32X3 = "tf32x3"
 REFERENCE = "reference"
 
 
@@ -158,25 +156,25 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor) -> str:
     """The route of flash attention (K3, and K4 and K5 in the backward)
     for q [B,Sq,H,D] and k [B,Sk,H,D], by declared shape and dtype: REFERENCE
     for ragged or oversized shapes, WGMMA for bf16 with d in {64, 128},
-    CUDA_CORE for every other eligible shape (f32, or bf16 of another
-    width), whose K3 and K5 run on the tensor cores by the 3xTF32 split and
-    K4 on the CUDA cores. On a CPU or meta tensor it names the route a CUDA
-    tensor of the same shape and dtype takes."""
+    TF32X3 for every other eligible shape (f32, or bf16 of another width),
+    whose K3, K4 and K5 run on the tensor cores by the 3xTF32 split. On a
+    CPU or meta tensor it names the route a CUDA tensor of the same shape
+    and dtype takes."""
     d = q.shape[-1]
     if not _kernel_shapes_ok(q.shape[1], k.shape[1], d):
         return REFERENCE
     if q.dtype == torch.bfloat16 and d in (64, 128):
         return WGMMA
-    return CUDA_CORE
+    return TF32X3
 
 
 def _route_counts() -> dict:
-    return {WGMMA: _build.LaunchCount(), CUDA_CORE: _build.LaunchCount()}
+    return {WGMMA: _build.LaunchCount(), TF32X3: _build.LaunchCount()}
 
 
 def _strided(x: torch.Tensor) -> torch.Tensor:
-    """x as the CUDA-core kernels read it: rows and heads strided, the
-    head dimension contiguous."""
+    """x as the 3xTF32 kernels read it: rows and heads strided, the head
+    dimension contiguous."""
     return x if x.stride(-1) == 1 else x.contiguous()
 
 

@@ -7,7 +7,7 @@ port of ``nvshare_tpu/parallel/ring_attention.py``.
   O(seq/n + block^2). Kernel-tile blocks (seq/n % 128 == 0, d <= 128)
   run each block on the flash kernel over f32 copies and merge the
   results by their log-sum-exp (:func:`_ring_kernel`); the f32 copies
-  take the CUDA-core route of K3, K4 and K5 on the card. Other blocks
+  take the 3xTF32 route of K3, K4 and K5 on the card. Other blocks
   run the plain online-softmax body.
 * :func:`ulysses_attention`: an all-to-all reshards sequence-sharded to
   head-sharded, each rank attends over the whole sequence for its head

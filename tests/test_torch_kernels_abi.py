@@ -24,10 +24,10 @@ ROUTES = {
     # name: (dtype, seq, d, route)
     "bf16_d64": (torch.bfloat16, 256, 64, tatt.WGMMA),
     "bf16_d128": (torch.bfloat16, 256, 128, tatt.WGMMA),
-    "f32_d64": (torch.float32, 256, 64, tatt.CUDA_CORE),
-    "f32_d128": (torch.float32, 256, 128, tatt.CUDA_CORE),
-    "bf16_d32": (torch.bfloat16, 256, 32, tatt.CUDA_CORE),
-    "bf16_d96": (torch.bfloat16, 128, 96, tatt.CUDA_CORE),
+    "f32_d64": (torch.float32, 256, 64, tatt.TF32X3),
+    "f32_d128": (torch.float32, 256, 128, tatt.TF32X3),
+    "bf16_d32": (torch.bfloat16, 256, 32, tatt.TF32X3),
+    "bf16_d96": (torch.bfloat16, 128, 96, tatt.TF32X3),
     "bf16_ragged_seq": (torch.bfloat16, 100, 64, tatt.REFERENCE),
     "bf16_oversized_d": (torch.bfloat16, 128, 160, tatt.REFERENCE),
 }
@@ -71,15 +71,28 @@ def test_route_is_chosen_by_shape_and_dtype(case):
 
 def test_each_route_has_its_own_count():
     fwd = tatt.flash_attention.route_launches
-    assert set(fwd) == {tatt.WGMMA, tatt.CUDA_CORE}
+    assert set(fwd) == {tatt.WGMMA, tatt.TF32X3}
     assert tatt.flash_attention_lse.route_launches is fwd
     dq = tatt.flash_backward_dq.route_launches
     dkv = tatt.flash_backward_dkv.route_launches
-    assert set(dq) == set(dkv) == {tatt.WGMMA, tatt.CUDA_CORE}
+    assert set(dq) == set(dkv) == {tatt.WGMMA, tatt.TF32X3}
     counts = [tatt.flash_attention.launches, *fwd.values(),
               tatt.flash_backward_dq.launches, *dq.values(),
               tatt.flash_backward_dkv.launches, *dkv.values()]
     assert len({id(c) for c in counts}) == len(counts)
+
+
+def test_no_route_is_named_for_the_cuda_cores():
+    # Every kernel of the f32 route multiplies on the tensor cores, so no
+    # route, and no launch count's key, is named "cuda-core".
+    routes = {tatt.kernel_route(x, x) for dtype, seq, d, _ in ROUTES.values()
+              for x in [torch.empty((1, seq, 2, d), dtype=dtype,
+                                    device="meta")]}
+    keys = {key for fn in (tatt.flash_attention, tatt.flash_backward_dq,
+                           tatt.flash_backward_dkv)
+            for key in fn.route_launches}
+    assert routes == {tatt.WGMMA, tatt.TF32X3, tatt.REFERENCE}
+    assert "cuda-core" not in routes | keys
 
 
 # -- bindings -----------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The f32 route's tensor-core arithmetic, emulated on the CPU.
 
-On the card, the f32 route's K3 (``csrc/attention.cu``) and K5
+On the card, the f32 route's K3 (``csrc/attention.cu``), K4 and K5
 (``csrc/attention_bwd.cu``) multiply by the 3xTF32 split of
 ``csrc/tf32x3.cuh``: every f32 operand x becomes big = x rounded to TF32
 (10 mantissa bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``)
@@ -10,15 +10,17 @@ The tests run without a card, so the kernels' arithmetic is emulated
 here in plain torch (rounding and truncation on the float32 bits, each
 TF32 term a float32 product, whose 11-bit by 11-bit products are exact)
 and held, tile by tile (``tile_rel_err``), to the plain versions the card
-holds the kernels to, ``flash_attention_reference`` and
-``flash_backward_dkv_reference``, at the route's limit of 1e-5. One TF32
+holds the kernels to, ``flash_attention_reference``,
+``flash_backward_dq_reference`` and ``flash_backward_dkv_reference``, at
+the route's limit of 1e-5. One TF32
 term alone must miss that limit, so the card's check can tell a kernel
 that forgot the split.
 
 The tensor cores also truncate each mma's sum where f32 rounds it. A model
 of that (each m16n8k8 step's result cut to 24 significant bits toward
-zero) shows why the kernels start P v from zero every key tile: one chain
-over 2,048 keys misses the limit, the kernels' chains hold it.
+zero) shows why the kernels start P v (K3) and dS k (K4) from zero every
+key tile: one chain over 2,048 keys misses the limit, the kernels' chains
+hold it.
 """
 
 import math
@@ -116,6 +118,31 @@ def emulated_dkv(q, k, v, do, lse, delta, g_lse, causal: bool, terms: int):
             rows_last(product(pt, dh, terms)))
 
 
+K4_KEYS = 32   # K4's keys per ring stage: dS k runs from zero over each
+
+
+def emulated_dq(q, k, v, do, lse, delta, g_lse, causal: bool, terms: int):
+    """K4's three products by the split, in the kernel's order: s = q k^T
+    and dP = dO v^T one product over D each, p and dS in f32, then dS k
+    from zero over each K4_KEYS-key stage, the stages added in f32 in key
+    order. dQ [B, S, H, D]."""
+    b, s, h, d = q.shape
+    qh, kh, vh, dh = (heads_first(x) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+    rows = (lse.reshape(b, h, s, 1), (delta - g_lse).reshape(b, h, s, 1))
+    st = product(qh, kh.transpose(-1, -2), terms)          # [B, H, q, keys]
+    dp = product(dh, vh.transpose(-1, -2), terms)
+    p = torch.exp(st * scale - rows[0])
+    if causal:
+        p = p.masked_fill(causal_mask(s), 0.0)
+    ds = p * (dp - rows[1]) * scale
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, kh.shape[2], K4_KEYS):
+        keys = slice(k0, k0 + K4_KEYS)
+        dq = dq + product(ds[..., keys], kh[:, :, keys], terms)
+    return rows_last(dq)
+
+
 def test_rounding_is_to_nearest_ties_away_from_zero():
     ulp = 2.0 ** -10                            # TF32's unit at 1.0
     x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -20,
@@ -176,6 +203,22 @@ def test_split_holds_k5_products_and_one_term_does_not(shape, causal):
             assert min(errs) > LIMIT, errs
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_split_holds_k4_products_and_one_term_does_not(shape, causal):
+    q, k, v, do, g_lse = inputs(SHAPES[shape])
+    o, lse = tatt.flash_attention_reference(q, k, v, causal=causal)
+    delta = tatt.attention_delta(o, do)
+    want = tatt.flash_backward_dq_reference(q, k, v, do, lse, delta,
+                                            causal, g_lse)
+    three = tile_rel_err(
+        emulated_dq(q, k, v, do, lse, delta, g_lse, causal, 3), want)
+    one = tile_rel_err(
+        emulated_dq(q, k, v, do, lse, delta, g_lse, causal, 1), want)
+    assert three <= LIMIT, three
+    assert one > LIMIT, one
+
+
 def truncate(x: torch.Tensor) -> torch.Tensor:
     """x (float64) cut to 24 significant bits toward zero: the model of an
     mma's sum."""
@@ -229,5 +272,42 @@ def test_truncating_sums_need_the_kernels_short_chains():
     want, _ = tatt.flash_attention_reference(q, k, v, causal=True)
     one_chain = tile_rel_err(truncated_forward(q, k, v, True), want)
     per_tile = tile_rel_err(truncated_forward(q, k, v, False), want)
+    assert one_chain > LIMIT, one_chain
+    assert per_tile <= LIMIT / 5, per_tile
+
+
+def truncated_dq(q, k, v, do, lse, delta, g_lse,
+                 chain_keys: bool) -> torch.Tensor:
+    """K4 (causal) with every product an mma chain: s and dP over D, then
+    dS k chained over all keys, or from zero a K4_KEYS-key stage and added
+    in f32 as the kernel does."""
+    qh, kh, vh, dh = (heads_first(x) for x in (q, k, v, do))
+    b, h, s, d = qh.shape
+    scale = 1.0 / math.sqrt(d)
+    st = mma_chain(torch.zeros((b, h, s, s)), qh, kh.transpose(-1, -2))
+    dp = mma_chain(torch.zeros((b, h, s, s)), dh, vh.transpose(-1, -2))
+    p = torch.exp(st * scale - lse.reshape(b, h, s, 1))
+    p = p.masked_fill(causal_mask(s), 0.0)
+    ds = p * (dp - (delta - g_lse).reshape(b, h, s, 1)) * scale
+    if chain_keys:
+        return rows_last(mma_chain(torch.zeros_like(qh), ds, kh))
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, s, K4_KEYS):
+        keys = slice(k0, k0 + K4_KEYS)
+        dq = dq + mma_chain(torch.zeros_like(qh), ds[..., keys],
+                            kh[:, :, keys])
+    return rows_last(dq)
+
+
+def test_truncating_dq_sums_need_the_kernels_short_chains():
+    # K4's dS k over 2,048 keys: one chain of 768 truncated steps, or the
+    # kernel's 32-key stages (12 steps each) added in f32.
+    q, k, v, do, g_lse = inputs((1, 2048, 1, 64), seed=2)
+    o, lse = tatt.flash_attention_reference(q, k, v, causal=True)
+    delta = tatt.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    want = tatt.flash_backward_dq_reference(*args, True, g_lse)
+    one_chain = tile_rel_err(truncated_dq(*args, g_lse, True), want)
+    per_tile = tile_rel_err(truncated_dq(*args, g_lse, False), want)
     assert one_chain > LIMIT, one_chain
     assert per_tile <= LIMIT / 5, per_tile
