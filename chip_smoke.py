@@ -13,7 +13,9 @@ end; any failure exits non-zero):
    limit, host ``MemAvailable``.
 2. Build, all at once: the CUDA kernels (one ``nvcc`` per source in
    ``nvshare_tpu_torch/csrc/``) and ``tpushare-scheduler``/``tpusharectl``
-   from ``src/`` into ``build/sched/``.
+   and ``libtpushare_client.so`` from ``src/`` into ``build/sched/``, then
+   the driver-API hook ``libtpushare_cuda.so`` that links that client
+   (``make -C nvshare_tpu_torch/native``, into ``build/cuda_hook/``).
 3. Kernel checks on the card against the plain PyTorch versions:
    ``fused_mix`` bit-exact in f32 and bf16 at one full burner chunk
    (8192x8192) and at 16384x16384; ``tiled_matmul`` within rtol 1e-4,
@@ -134,17 +136,29 @@ end; any failure exits non-zero):
    builds and runs only this pair with the release taken out of the
    tenants, and must show the device OOM it prevents.
 11. The unmodified pair: ``python -m nvshare_tpu_torch.workloads.lm_train``
-   (GPT-3 6.7B widths, UNMOD_LAYERS of 32 layers) and ``...mlp_train``
-   (the MLP through the prefetching input pipeline), each made a tenant
-   only by ``import nvshare_tpu_torch.autoload``: each alone (the MLP
-   also restored from its midpoint checkpoint and run on; the LM once
-   more with ``TPUSHARE_DISABLE=1``, the gate's host cost), then both at
-   once at a quantum of at least 3x the measured handoff. Every loss and
-   state sum must equal solo bit for bit, both tenants must be granted
-   and dropped at least twice, and K3, K4 and K5 must have launched 2 x
-   layers, layers and layers times a step by the wgmma route, every
-   launch gated. Each child's whole output is kept under
-   ``build/logs/``.
+   (GPT-3 6.7B widths, UNMOD_LAYERS of 32 layers), made a tenant only by
+   ``import nvshare_tpu_torch.autoload``, and ``...mlp_train`` (the MLP
+   through the prefetching input pipeline), made one in the pair only by
+   the driver-API hook (``runtime.native.preload_env``, its Python gate
+   off with ``TPUSHARE_DISABLE=1``): each alone under ``autoload`` (the
+   MLP also restored from its midpoint checkpoint and run on; the LM once
+   more with ``TPUSHARE_DISABLE=1``, the gate's host cost, and once under
+   the hook alone, lm-preload, started while a contender holds the lock),
+   then both at once at a quantum of at least 3x the measured handoff,
+   each queued behind a contender before either runs (the pair's
+   tenants start while the resumed MLP runs, under the pair's own
+   scheduler).
+   Every loss and state sum must equal solo bit for bit (the hooked MLP
+   its ``autoload`` solo, lm-preload lm-solo's first steps), both
+   tenants must be granted and dropped at least twice, and K3, K4 and K5
+   must have launched 2 x layers, layers and layers times a step by the
+   wgmma route, every launch of the ``autoload`` LM gated. The hook must
+   have been preloaded (its startup and exit lines on the child's
+   stderr) and gated launches and copies; lm-preload's first gated call
+   must come after the contender's release, and the launches the hook saw
+   from the attention libraries (each with its own static CUDA runtime)
+   must be at least K3-K5's count. Each child's whole output is kept
+   under ``build/logs/``.
 12. Parallel ranks (``nvshare_tpu_torch/parallel``): N processes on the
    one card through ``parallel/dryrun.py``'s spawn, under gloo (NCCL
    refuses two ranks on one device), every collective staged through
@@ -241,6 +255,11 @@ from nvshare_tpu_torch.models.transformer import (  # noqa: E402
     transformer_forward,
 )
 from nvshare_tpu_torch.ops import _build  # noqa: E402
+from nvshare_tpu_torch.runtime import native  # noqa: E402
+from nvshare_tpu_torch.runtime.protocol import (  # noqa: E402
+    MsgType,
+    SchedulerLink,
+)
 from nvshare_tpu_torch.ops.attention import (  # noqa: E402
     TF32X3,
     WGMMA,
@@ -381,28 +400,56 @@ class Phases:
 # -- build -------------------------------------------------------------------
 
 def build_all() -> dict:
+    """The kernels, one ``nvcc`` a source, beside the scheduler, ctl and
+    client library (``make -C src``) followed by the driver-API hook that
+    links that client library (``make -C nvshare_tpu_torch/native``)."""
     SCHED_DIR.mkdir(parents=True, exist_ok=True)
     targets = [str(SCHED_DIR / "tpushare-scheduler"),
                str(SCHED_DIR / "tpusharectl"),
                str(SCHED_DIR / "libtpushare_client.so")]
-    t0 = time.perf_counter()
-    make = subprocess.Popen(
-        ["make", "-C", str(REPO / "src"), "-j8", f"BUILD={SCHED_DIR}",
-         *targets], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+    native_out: dict = {}
+
+    def make_native() -> None:
+        make = ["make", "-C", str(REPO / "src"), "-j8", f"BUILD={SCHED_DIR}"]
+        t0 = time.perf_counter()
+        try:
+            # The client library first: the hook links it, and builds
+            # beside the scheduler and ctl.
+            subprocess.run([*make, targets[2]], check=True,
+                           capture_output=True, text=True)
+            rest = subprocess.Popen([*make, *targets[:2]],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            t1 = time.perf_counter()
+            native.build(client_dir=SCHED_DIR, hook_only=True)
+            native_out["hook_s"] = time.perf_counter() - t1
+            out, _ = rest.communicate()
+            if rest.returncode != 0:
+                raise subprocess.CalledProcessError(rest.returncode,
+                                                    rest.args, out, "")
+            native_out["make_s"] = time.perf_counter() - t0
+        except subprocess.CalledProcessError as e:
+            native_out["error"] = f"{e.stdout}{e.stderr}"
+        except RuntimeError as e:
+            native_out["error"] = str(e)
+
+    maker = threading.Thread(target=make_native)
+    maker.start()
     try:
         kernels = _build.build(ptxas_verbose=True)
     finally:
-        make_log, _ = make.communicate()
-    make_s = time.perf_counter() - t0
-    if make.returncode != 0:
-        raise RuntimeError(f"scheduler build failed:\n{make_log}")
+        maker.join()
+    if "error" in native_out:
+        raise RuntimeError(f"native build failed:\n{native_out['error']}")
     for name, info in kernels.items():
         log(f"built {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log(f"built scheduler, ctl and client library: {make_s:.1f} s")
+    log(f"built scheduler, ctl and client library: "
+        f"{native_out['make_s']:.1f} s")
+    log(f"built the driver-API hook {native.default_hook_path()}: "
+        f"{native_out['hook_s']:.1f} s")
     return {k: v["seconds"] for k, v in kernels.items()}
 
 
@@ -2690,7 +2737,7 @@ def pre_repair_phase(physical: int) -> dict:
             "oom": sorted(ooms), "makespan_s": makespan}
 
 
-# -- unmodified programs: the dispatch-mode gate ------------------------------
+# -- unmodified programs: the dispatch-mode gate and the driver-API hook -------
 
 # The unmodified LM trainer: GPT-3 6.7B widths (workloads/lm_train.py),
 # cut to UNMOD_LAYERS of 32 layers so that its peak reserved memory and
@@ -2703,8 +2750,18 @@ def pre_repair_phase(physical: int) -> dict:
 UNMOD_LAYERS = 24
 UNMOD_LM_STEPS = 10
 UNMOD_UNGATED_STEPS = 3       # the ungated solo: the gate's host cost
-UNMOD_MLP_STEPS = 400
+# Under the driver-API hook the MLP's 400 steps took 8-11 s on an H100
+# 80GB HBM3 (12 s under autoload): 500 keep its work in the pair over 2.5
+# quanta of a 4 s TQ, so that each tenant is dropped at least twice.
+UNMOD_MLP_STEPS = 500
 UNMOD_MLP_BATCH = 1024
+# lm-preload: how long the contender keeps the lock once the preloaded LM
+# waits at its gate (its first gated call must wait for the release).
+UNMOD_HOLD_S = 2.0
+# The kernel libraries whose launches the hook must see from lm-preload:
+# each carries its own static copy of the CUDA runtime.
+ATTENTION_LIBS = ("attention", "attention_bwd", "attention_sm90",
+                  "attention_bwd_sm90")
 
 
 def start_workload(name: str, module: str, args: list, env: dict):
@@ -2729,59 +2786,179 @@ def check_gated_kernels(name: str, r: dict, layers: int, steps: int,
                                  f"{n if gated else 0} gated")
 
 
+def hooked(name: str, r: dict) -> dict:
+    """The driver-API hook's exit report from ``name``'s kept log; fails
+    unless the hook was preloaded, gated launches and copies, and the
+    Python gate stayed off."""
+    text = (CHILD_LOGS / f"{name}.log").read_text()
+    report = native.hook_report(text)
+    if not native.preloaded(text) or report is None:
+        raise AssertionError(f"[unmod] {name}: the CUDA hook was not "
+                             "loaded (no startup or exit line)")
+    if report["launches"] <= 0 or report["copies"] <= 0:
+        raise AssertionError(f"[unmod] {name}: the hook gated nothing: "
+                             f"{report}")
+    if r["gate"] or r["gated_ops"] != 0:
+        raise AssertionError(f"[unmod] {name}: the Python gate was on")
+    return report
+
+
+class Holder:
+    """A contender that holds the lock of a private scheduler until it
+    releases it."""
+
+    def __init__(self, sched: Scheduler):
+        self.sched = sched
+        self.link = SchedulerLink(
+            path=str(Path(sched.sock_dir) / "scheduler.sock"),
+            job_name="holder")
+        self.link.register()
+        self.link.send(MsgType.REQ_LOCK)
+        if self.link.recv(timeout=30).type != MsgType.LOCK_OK:
+            raise AssertionError("[unmod] the contender was not granted")
+
+    def wait_queued(self, n: int, procs) -> None:
+        """Until ``n`` tenants wait at their gates behind the holder (the
+        scheduler's ``queue=`` counts the holder too); fails if one of
+        ``procs`` exits first."""
+        deadline = time.time() + 180
+        while True:
+            out = subprocess.run(
+                [str(SCHED_DIR / "tpusharectl"), "-s"], capture_output=True,
+                text=True, timeout=30,
+                env=dict(os.environ, TPUSHARE_SOCK_DIR=self.sched.sock_dir))
+            summary = out.stdout.splitlines()[0] if out.stdout else ""
+            if f" queue={n + 1} " in f" {summary} ":
+                return
+            if any(p.poll() is not None for p in procs) or \
+                    time.time() > deadline:
+                raise AssertionError(f"[unmod] {n} tenants never queued "
+                                     f"behind the contender: {summary}")
+            time.sleep(0.1)
+
+    def release(self) -> float:
+        """Hand the lock on; returns the time (Unix ms)."""
+        released_ms = time.time() * 1000
+        self.link.send(MsgType.LOCK_RELEASED)
+        return released_ms
+
+    def close(self) -> None:
+        self.link.close()
+
+
 def unmod_phase() -> dict:
     """The unmodified pair: workloads/lm_train.py (GPT-3 6.7B widths at
-    UNMOD_LAYERS) and workloads/mlp_train.py, each made a tenant by its
-    one line (``import nvshare_tpu_torch.autoload``). Each alone under a
-    private scheduler (the MLP also restored from its midpoint checkpoint
-    and run on), the LM once more ungated (``TPUSHARE_DISABLE=1``), then
-    both at once at a quantum of at least 3x the measured handoff. Every
-    loss and state sum must equal solo bit for bit; both tenants must be
-    granted and dropped at least twice; K3-K5 launched by the wgmma route
-    at 2L/L/L a step, every launch gated."""
+    UNMOD_LAYERS) made a tenant by its one line (``import
+    nvshare_tpu_torch.autoload``) and workloads/mlp_train.py made one by
+    the driver-API hook alone (``preload_env``, ``TPUSHARE_DISABLE=1``).
+    Each alone under a private scheduler (the MLP under ``autoload``, and
+    also restored from its midpoint checkpoint and run on), the LM once
+    more ungated (``TPUSHARE_DISABLE=1``) and once under the hook alone
+    while a contender holds the lock (lm-preload), then both at once at a
+    quantum of at least 3x the measured handoff, released together from
+    behind a contender. Every loss and state sum
+    must equal solo bit for bit (the hooked MLP its ``autoload`` solo,
+    lm-preload lm-solo's first steps); both tenants must be granted and
+    dropped at least twice; K3-K5 launched by the wgmma route at 2L/L/L a
+    step, every launch of the ``autoload`` LM gated; the hook's first
+    gated call after the contender's release, and the launches it saw from
+    the attention libraries at least K3-K5's count."""
     sock_dir = tempfile.mkdtemp(prefix="tpushare-unmod-")
     ckpt = Path(sock_dir) / "ckpt"
     env = {"TPUSHARE_SOCK_DIR": sock_dir,
            "TPUSHARE_LIB_DIR": str(SCHED_DIR)}
+    # Only the hooked tenants get LD_PRELOAD; this process and its builds
+    # never do.
+    hook_env = native.preload_env(
+        dict(os.environ, **env, TPUSHARE_DISABLE="1"), client_dir=SCHED_DIR)
     lm_args = ["--layers", UNMOD_LAYERS, "--steps", UNMOD_LM_STEPS]
     mlp_args = ["--steps", UNMOD_MLP_STEPS, "--batch", UNMOD_MLP_BATCH]
-    procs: list = []
+    short_args = ["--layers", UNMOD_LAYERS, "--steps", UNMOD_UNGATED_STEPS]
+    # The pair's own scheduler and tenants' environment: its tenants start
+    # while the last solo run goes on, and queue behind a contender there.
+    pair_dir = Path(sock_dir) / "pair"
+    pair_dir.mkdir()
+    pair_env = dict(env, TPUSHARE_SOCK_DIR=str(pair_dir))
+    pair_hook_env = dict(hook_env, TPUSHARE_SOCK_DIR=str(pair_dir))
+    procs: dict = {}
+    scheds: dict = {}
+    holders: list = []
     try:
-        sched = Scheduler(sock_dir, tq=30)
-        try:
-            lm = collect_proc("lm-solo", start_workload(
-                "lm-solo", "lm_train", lm_args, env), 600)
-            ungated = collect_proc("lm-ungated", start_workload(
-                "lm-ungated", "lm_train",
-                ["--layers", UNMOD_LAYERS, "--steps", UNMOD_UNGATED_STEPS],
-                dict(env, TPUSHARE_DISABLE="1")), 600)
-            mlp = collect_proc("mlp-solo", start_workload(
-                "mlp-solo", "mlp_train", [*mlp_args, "--ckpt", ckpt], env),
-                600)
-            resumed = collect_proc("mlp-resumed", start_workload(
-                "mlp-resumed", "mlp_train", [*mlp_args, "--resume", ckpt],
-                env), 600)
-        finally:
-            sched.stop()
+        # Both schedulers start with a quantum longer than any hold here
+        # (a contender's, a tenant's queued behind another's run), so that
+        # no holder is ever dropped; the pair's is set to its TQ when it
+        # starts.
+        scheds["solo"] = sched = Scheduler(sock_dir, tq=120)
+        lm = collect_proc("lm-solo", start_workload(
+            "lm-solo", "lm_train", lm_args, env), 600)
+        # lm-preload starts beside lm-ungated, registers at cuInit and
+        # waits at the gate behind the contender, so its start-up is hidden
+        # under the ungated run and touches none of its steps.
+        holder = Holder(sched)
+        holders.append(holder)
+        procs["lm-ungated"] = start_workload(
+            "lm-ungated", "lm_train", short_args,
+            dict(env, TPUSHARE_DISABLE="1"))
+        procs["lm-preload"] = start_workload(
+            "lm-preload", "lm_train", short_args, hook_env)
+        ungated = collect_proc("lm-ungated", procs["lm-ungated"], 600)
+        holder.wait_queued(1, [procs["lm-preload"]])
+        time.sleep(UNMOD_HOLD_S)
+        released_ms = holder.release()
+        # The MLP's start-up overlaps lm-preload's steps (they are bound by
+        # the card, not the host); it queues behind it.
+        procs["mlp-solo"] = start_workload(
+            "mlp-solo", "mlp_train", [*mlp_args, "--ckpt", ckpt], env)
+        preload = collect_proc("lm-preload", procs["lm-preload"], 600)
+        preload_hook = hooked("lm-preload", preload)
+        # The resumed run starts once the midpoint checkpoint is in place
+        # (saved under a temporary name, then renamed); the pair's tenants
+        # with it, behind the pair's contender. Both tenants queue before
+        # either runs: the hooked MLP reaches its first gated call at
+        # cuInit, the LM only after building its parameters on the host,
+        # and whichever ran alone first would do most of its work before
+        # the other arrived.
+        mid_ckpt = ckpt / f"step_{UNMOD_MLP_STEPS // 2}"
+        deadline = time.time() + 300
+        while not mid_ckpt.exists():
+            if procs["mlp-solo"].poll() is not None or \
+                    time.time() > deadline:
+                break  # collect_proc below reports the failure
+            time.sleep(0.1)
+        procs["mlp-resumed"] = start_workload(
+            "mlp-resumed", "mlp_train", [*mlp_args, "--resume", ckpt], env)
+        scheds["pair"] = pair_sched = Scheduler(str(pair_dir), tq=120)
+        pair_holder = Holder(pair_sched)
+        holders.append(pair_holder)
+        t0 = time.time()
+        procs["lm"] = start_workload("lm", "lm_train", lm_args, pair_env)
+        procs["mlp"] = start_workload("mlp", "mlp_train", mlp_args,
+                                      pair_hook_env)
+        mlp = collect_proc("mlp-solo", procs["mlp-solo"], 600)
+        resumed = collect_proc("mlp-resumed", procs["mlp-resumed"], 600)
         # A handoff fences the work in flight (at most a step's) and
         # releases the freed blocks: the LM's step bounds it.
         lm_step = statistics.median(lm["step_s"][1:])
         tq = max(3, math.ceil(3.0 * lm_step))
-        sched = Scheduler(sock_dir, tq=tq)
-        try:
-            t0 = time.time()
-            procs = [start_workload("lm", "lm_train", lm_args, env),
-                     start_workload("mlp", "mlp_train", mlp_args, env)]
-            pair = {"lm": collect_proc("lm", procs[0], 900),
-                    "mlp": collect_proc("mlp", procs[1], 900)}
-            wall = time.time() - t0
-            log_text = sched.text()
-        finally:
-            stop_procs(procs)
-            sched.stop()
+        pair_holder.wait_queued(2, [procs["lm"], procs["mlp"]])
+        pair_sched.set_tq(tq)
+        pair_start = pair_holder.release() / 1000
+        pair = {"lm": collect_proc("lm", procs["lm"], 900),
+                "mlp": collect_proc("mlp", procs["mlp"], 900)}
+        wall = time.time() - t0
     finally:
+        for h in holders:
+            h.close()
+        stop_procs(procs.values())
+        CHILD_LOGS.mkdir(parents=True, exist_ok=True)
+        for name, sc in scheds.items():
+            (CHILD_LOGS / f"unmod-{name}-scheduler.log").write_text(
+                sc.text())
+            sc.stop()
         shutil.rmtree(sock_dir, ignore_errors=True)
+    log_text = (CHILD_LOGS / "unmod-pair-scheduler.log").read_text()
     solo = {"lm": lm, "mlp": mlp}
+    mlp_hook = hooked("mlp", pair["mlp"])
     for name, r in pair.items():
         if r["losses"] != solo[name]["losses"] or \
                 r["state_sum"] != solo[name]["state_sum"]:
@@ -2790,18 +2967,23 @@ def unmod_phase() -> dict:
                                  f"{r['state_sum']!r}, solo "
                                  f"{solo[name]['losses']} "
                                  f"{solo[name]['state_sum']!r}")
-        if not r["gate"] or r["gated_ops"] <= 0:
-            raise AssertionError(f"[unmod] {name} ran ungated: {r}")
         grants = len(re.findall(rf"LOCK_OK -> {name} ", log_text))
         drops = len(re.findall(rf"DROP_LOCK -> {name} ", log_text))
         if grants < 2 or drops < 2:
             raise AssertionError(f"[unmod] {name} granted {grants} and "
                                  f"dropped {drops} times, not at least "
                                  "twice each")
-        handoff = r["release"]
-        if handoff["handoffs"] < 2 or handoff["handoff_s_mean"] * 3.0 > tq:
-            raise AssertionError(f"[unmod] {name}'s handoffs {handoff} "
-                                 f"against TQ {tq} s")
+    # The autoload LM's handoffs are its arena's (the hooked MLP's are the
+    # hook's fences, counted in its report).
+    if not pair["lm"]["gate"] or pair["lm"]["gated_ops"] <= 0:
+        raise AssertionError(f"[unmod] lm ran ungated: {pair['lm']}")
+    handoff = pair["lm"]["release"]
+    if handoff["handoffs"] < 2 or handoff["handoff_s_mean"] * 3.0 > tq:
+        raise AssertionError(f"[unmod] lm's handoffs {handoff} against TQ "
+                             f"{tq} s")
+    if mlp_hook["fences"] < 2:
+        raise AssertionError(f"[unmod] the hooked MLP fenced "
+                             f"{mlp_hook['fences']} times")
     if REVOKED in log_text:
         raise AssertionError("[unmod] the scheduler revoked a lock")
     mid = UNMOD_MLP_STEPS // 2
@@ -2817,16 +2999,35 @@ def unmod_phase() -> dict:
     for name, r, steps, gated in (("lm-solo", lm, UNMOD_LM_STEPS, True),
                                   ("lm", pair["lm"], UNMOD_LM_STEPS, True),
                                   ("lm-ungated", ungated,
+                                   UNMOD_UNGATED_STEPS, False),
+                                  ("lm-preload", preload,
                                    UNMOD_UNGATED_STEPS, False)):
         check_gated_kernels(name, r, UNMOD_LAYERS, steps, gated)
+    # lm-preload: gated on the card by the hook alone.
+    if preload["losses"] != lm["losses"][:UNMOD_UNGATED_STEPS]:
+        raise AssertionError(f"[unmod] lm-preload's losses "
+                             f"{preload['losses']} differ from lm-solo's")
+    first = preload_hook["first_gated_unix_ms"]
+    if first <= 0 or first < released_ms - 50:
+        raise AssertionError(f"[unmod] lm-preload's first gated call at "
+                             f"{first} ms, the contender released at "
+                             f"{released_ms:.0f} ms")
+    lib_names = {_build.library_path(n).name for n in ATTENTION_LIBS}
+    lib_launches = sum(n for obj, n in preload_hook["callers"].items()
+                       if obj in lib_names)
+    k345 = sum(k["launches"] for k in preload["kernels"].values())
+    if lib_launches < k345:
+        raise AssertionError(f"[unmod] the hook saw {lib_launches} launches "
+                             f"from the attention libraries, K3-K5 "
+                             f"counted {k345}: {preload_hook['callers']}")
     # The training spans (from each state's creation; process start and
-    # CUDA init left out): the pair's from the first begin to the last
-    # end, against the two solo spans' sum.
+    # CUDA init left out): the pair's from the contender's release to the
+    # last end, against the two solo spans' sum.
     solo_run = {n: r["t_end"] - r["t_begin"] for n, r in solo.items()}
-    span = (max(r["t_end"] for r in pair.values())
-            - min(r["t_begin"] for r in pair.values()))
+    span = max(r["t_end"] for r in pair.values()) - pair_start
     gated_step = statistics.median(lm["step_s"][1:])
     plain_step = statistics.median(ungated["step_s"][1:])
+    hook_step = statistics.median(preload["step_s"][1:])
     ops_step = lm["gated_ops"] / UNMOD_LM_STEPS
     out = {
         "layers": UNMOD_LAYERS, "lm_steps": UNMOD_LM_STEPS,
@@ -2839,9 +3040,16 @@ def unmod_phase() -> dict:
                       dict(pair, **{"lm-solo": lm, "mlp-solo": mlp}).items()},
         "gated_ops_per_lm_step": ops_step,
         "gate_us_per_op": (gated_step - plain_step) / ops_step * 1e6,
+        "step_s_preload": hook_step,
+        "hook_s_per_step": hook_step - plain_step,
+        "hook": {"lm-preload": preload_hook, "mlp": mlp_hook},
+        "preload_release_wait_ms": preload_hook["first_gated_unix_ms"]
+        - released_ms,
+        "preload_attention_lib_launches": lib_launches,
         "peak_reserved": {n: r["peak_reserved"] for n, r in
                           dict(pair, **{"lm-solo": lm, "mlp-solo": mlp,
-                                        "lm-ungated": ungated}).items()},
+                                        "lm-ungated": ungated,
+                                        "lm-preload": preload}).items()},
         "handoffs": {n: r["release"] for n, r in pair.items()},
         "grants_drops": {n: (len(re.findall(rf"LOCK_OK -> {n} ", log_text)),
                              len(re.findall(rf"DROP_LOCK -> {n} ",
@@ -2851,7 +3059,7 @@ def unmod_phase() -> dict:
         "state_sum": {n: solo[n]["state_sum"] for n in solo},
         "launches": {n: r["kernels"] for n, r in
                      (("lm-solo", lm), ("lm", pair["lm"]),
-                      ("lm-ungated", ungated))},
+                      ("lm-ungated", ungated), ("lm-preload", preload))},
     }
     out["line"] = (
         f"[unmod] lm_train at {UNMOD_LAYERS} layers x {UNMOD_LM_STEPS} "
@@ -2867,7 +3075,17 @@ def unmod_phase() -> dict:
         f"{ {n: round((b or 0) / GiB, 2) for n, b in out['peak_reserved'].items()} } "
         f"GiB; handoffs {out['handoffs']}; K3/K4/K5 launches in the pair's "
         f"LM {[pair['lm']['kernels'][k]['gated'] for k in ('flash_attention', 'flash_backward_dq', 'flash_backward_dkv')]} "
-        "gated, every one by the wgmma route")
+        "gated, every one by the wgmma route. Under the driver-API hook "
+        f"alone: the pair's MLP equal its autoload solo, hook "
+        f"{ {k: mlp_hook[k] for k in ('launches', 'copies', 'fences', 'window_max', 'gate_wait_ms')} }; "
+        f"lm-preload's first gated call "
+        f"{out['preload_release_wait_ms']:.0f} ms after the contender's "
+        f"release, losses equal lm-solo's, LM step {hook_step:.4f} s under "
+        f"the hook against {plain_step:.4f} s ungated (hook "
+        f"{out['hook_s_per_step'] * 1e3:.1f} ms a step), hook "
+        f"{ {k: preload_hook[k] for k in ('launches', 'copies', 'memsets', 'fences', 'window_max', 'gate_wait_ms')} }, "
+        f"{lib_launches} launches from the attention libraries against "
+        f"{k345} K3-K5 launches; callers {preload_hook['callers']}")
     log(out["line"])
     return out
 

@@ -114,7 +114,7 @@ def run_scenario(scenario: str, env: dict = None,
         [sys.executable, "-c", SCENARIO, str(REPO_ROOT), scenario, package],
         capture_output=True, text=True, timeout=60,
         env=dict(os.environ, **(env or {})))
-    assert out.returncode == 0, out.stderr
+    assert out.returncode == 0, out.stdout + out.stderr
     return out.stdout
 
 
@@ -123,8 +123,13 @@ COUNTERS = ("grants", "drops", "early", "revoked")
 
 
 def counters(sched) -> dict:
-    fields = dict(kv.split("=", 1) for kv in sched.ctl("-s").stdout.split()
-                  if "=" in kv)
+    """The scheduler's totals: the first line of ``tpusharectl -s``. The
+    lines after it are one a connected client and repeat ``grants=`` and
+    ``revoked=`` for that client alone; read with the totals, a client
+    whose exit the scheduler has not yet seen (a loaded host) would
+    replace them."""
+    summary = sched.ctl("-s").stdout.splitlines()[0]
+    fields = dict(kv.split("=", 1) for kv in summary.split() if "=" in kv)
     return {k: int(fields[k]) for k in COUNTERS}
 
 

@@ -36,7 +36,7 @@ want = {"nvshare_tpu_torch." + m for m in (
     "workloads.lm_train", "workloads.mlp_train", "parallel.collectives",
     "parallel.mesh", "parallel.ring_attention", "parallel.moe",
     "parallel.seq_transformer", "parallel.pipeline", "parallel.dryrun",
-    "models.moe_transformer")}
+    "models.moe_transformer", "runtime.native")}
 assert want <= set(names), sorted(want - set(names))
 import chip_smoke
 bad = sorted(m for m in sys.modules
